@@ -1,4 +1,4 @@
-"""computervisionimagestich2_tpu — TPU-native panorama stitching framework.
+"""computervisionimagestich2_tpu — a JAX panorama stitching framework.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
 C++ CImg+VLFeat panorama stitcher (chensh236/ComputerVisionImageStich2):

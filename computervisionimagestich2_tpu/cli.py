@@ -50,7 +50,7 @@ def build_config(args):
     if args.no_seam_auto:
         cfg = dataclasses.replace(
             cfg, blend=dataclasses.replace(cfg.blend, seam_auto_area=0))
-    if args.match_method != "auto" or args.l2pre_m:
+    if args.match_method != "exact" or args.l2pre_m:
         mrepl = {"method": args.match_method}
         if args.l2pre_m:
             mrepl["l2pre_m"] = args.l2pre_m
@@ -63,7 +63,7 @@ def build_config(args):
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="panorama-tpu",
-        description="TPU-native panorama stitcher "
+        description="JAX panorama stitcher "
                     "(images named 1.bmp..N.bmp in a directory)")
     p.add_argument("--input", required=True,
                    help="directory containing 1.bmp..N.bmp")
@@ -90,7 +90,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--blend-dtype", choices=["auto", "f32", "bf16"],
                    default="auto",
                    help="auto (default) = bf16 pyramid blend on canvases "
-                        "over ~1.5 Mpx (measured ~2.2x there), f32 below; "
+                        "over ~1.5 Mpx, f32 below; "
                         "f32 = parity mode; bf16 = force reduced precision "
                         "(a few u8 levels of rounding in smooth gradients)")
     p.add_argument("--no-seam-auto", action="store_true",
@@ -104,15 +104,15 @@ def make_parser() -> argparse.ArgumentParser:
                         "reference's full-canvas blend (default). Pair "
                         "with --gain-compensation to absorb per-frame "
                         "exposure steps the narrow band can't hide")
-    p.add_argument("--match-method", choices=["auto", "exact", "l2pre"],
-                   default="auto",
-                   help="L1 2-NN strategy: 'exact' = every pair on the "
-                        "VPU (parity mode); 'l2pre' = MXU L2 candidate "
-                        "prefilter + exact-L1 rescore; 'auto' = l2pre on "
-                        "TPU (config.MatchConfig.method)")
+    p.add_argument("--match-method", choices=["exact", "l2pre"],
+                   default="exact",
+                   help="L1 2-NN strategy: 'exact' = every descriptor "
+                        "pair (default, parity mode); 'l2pre' = L2 "
+                        "matmul candidate prefilter + exact-L1 rescore "
+                        "(config.MatchConfig.method)")
     p.add_argument("--l2pre-m", type=int, default=0, metavar="M",
                    help="candidates rescored per query for l2pre (0 = "
-                        "config defaults: 16 edges / 8 ordering counts; "
+                        "config defaults: 12 edges / 8 ordering counts; "
                         "sets BOTH when given)")
     p.add_argument("--color-transfer", action="store_true",
                    help="per-edge Reinhard color transfer of each incoming "
@@ -131,7 +131,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=0, metavar="N",
                    help="shard canvas composites/blends row-wise over N "
                         "devices (jax.sharding Mesh + ppermute halo "
-                        "exchange over ICI); 0 = single device. Requires "
+                        "exchange); 0 = single device. Requires "
                         "N visible devices and --bucketed-canvas")
     p.add_argument("--artifacts", default=None,
                    help="directory to dump per-stage npz artifacts")
@@ -151,20 +151,11 @@ def main(argv=None):
     if args.resume and not args.artifacts:
         p.error("--resume requires --artifacts")
 
-    # Persistent XLA compilation cache: the first-ever run pays the
-    # compiles; later CLI invocations with repeat shapes reload serialized
-    # executables (the cold-start relief VERDICT r1 #6 asks for beyond
-    # canvas bucketing). Opt out with PANORAMA_TPU_NO_CACHE=1.
-    if not os.environ.get("PANORAMA_TPU_NO_CACHE"):
-        import jax
+    # Persistent XLA compilation cache: later invocations with repeat
+    # shapes reload compiled executables (utils/cache.py says where).
+    from .utils.cache import enable_compile_cache
 
-        cache_dir = os.environ.get(
-            "PANORAMA_TPU_CACHE_DIR",
-            os.path.expanduser("~/.cache/panorama_tpu/xla"))
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    enable_compile_cache()
 
     from .models.stitcher import Stitcher
     from .utils.io import load_image, save_image

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native panorama stitcher.
+"""Configuration for the panorama stitcher.
 
 All defaults mirror the reference application's compile-time constants
 (/root/reference/ImageProcess.h:13-32, Projection.h:12-13, equalization.cpp:2,
@@ -31,39 +31,20 @@ class SiftConfig:
     n_spatial_bins: int = 4       # NBP, vl/sift.c:19
     n_desc_ori_bins: int = 8      # NBO, vl/sift.c:18
     max_angles: int = 4           # <=4 orientations per keypoint, sift.c:1018
-    # Static capacity knobs (TPU-native: dense masks instead of realloc,
-    # replacing the dynamic keys buffer at vl/sift.c:580-590). 0 = auto:
-    # scale with the input pixel count at trace time, so high-resolution
-    # inputs keep every keypoint the reference's dynamic buffers would
-    # (a fixed 2048 cap measurably truncated 1080p photos — ~4.5k found).
+    # Static capacity knobs (dense masks instead of realloc, replacing
+    # the dynamic keys buffer at vl/sift.c:580-590). 0 = auto: scale with
+    # the input pixel count at trace time, so high-resolution inputs keep
+    # every keypoint the reference's dynamic buffers would (a fixed 2048
+    # cap measurably truncated 1080p photos — ~4.5k found).
     max_keypoints_per_octave: int = 0
     max_keypoints: int = 0        # total after orientation expansion
-    # Per-keypoint orientation/descriptor backend: "auto" uses the Pallas
-    # keypoint-walk kernels (ops/pallas_sift.py) on TPU and the dense XLA
-    # batch elsewhere; "on"/"off" force a choice. Note the Pallas kernels
-    # do not vmap — batch paths that vmap sift_extract must set "off".
+    # Per-keypoint orientation/descriptor backend: "auto" runs the Pallas
+    # Triton kernels (ops/sift_triton.py) where the program runs on a GPU
+    # and the dense XLA batch elsewhere; "off" forces the XLA batch (mesh-
+    # sharded batch programs, and the reference the kernels are measured
+    # against), "interpret" the kernels through the Pallas interpreter
+    # (CPU tests).
     pallas: str = "auto"
-    # DoG extrema detection backend. "pallas" (default on TPU): the
-    # fused streaming detect (ops/pallas_detect.py round-5 redesign —
-    # per-row vectorized extraction, no dynamic stores). Promoted to
-    # default after the round-5 gate: compiles on the real chip, output
-    # bit-identical to the XLA form on bench input, and faster
-    # (<=0.1 ms vs 0.33-1.07 ms per 1440x1080 octave, probe detect-ab).
-    # "xla": dense 26-neighbor mask + bitonic compaction
-    # (ops/sift_kernels.py) — the fallback and non-TPU path. The
-    # round-4 regression (an interpret-only-tested kernel breaking the
-    # TPU build, VERDICT r4 missing #1) is guarded by
-    # scripts/tpu_smoke.py, which compiles every Pallas kernel on
-    # hardware before a round ships.
-    detect_impl: str = "pallas"
-    # Weight-arithmetic precision of the Pallas descriptor walks:
-    # "f32" (default) or "bf16". MEASURED NEGATIVE on v5e (round 5,
-    # same-session): bf16 walks ran 14.67 vs 12.8 ms/image — the casts
-    # and (16, 128)-tile relayouts cost more than any packed-element
-    # win, so the VPU does not deliver 2x here. Fidelity itself is fine
-    # (desc cosine >= 0.99994 vs f32 on the bench image); the flag stays
-    # as the recorded experiment.
-    walk_dtype: str = "f32"
 
     @property
     def sigma_k(self) -> float:
@@ -91,51 +72,32 @@ class SiftConfig:
 class MatchConfig:
     """Descriptor matching. The reference uses a 1-tree kd-forest with L1
     distance and Lowe ratio 0.5 (ImageProcess.cpp:280, ImageProcess.h:22).
-    TPU-native: exact all-pairs distance on the MXU/VPU + top-2."""
+    Here: exact all-pairs distance + top-2 on the device."""
 
     ratio_threshold: float = 0.5  # RATIO_THRESHOLD, ImageProcess.h:22
     distance: str = "l1"          # VlDistanceL1, ImageProcess.cpp:280
     pair_threshold: int = 20      # THRESHOLD (min matches to stitch), ImageProcess.h:18
-    # Static capacity for match pairs. 4096: the north-star 1440x1080
-    # runs produce up to ~2.3k ratio-test matches per direction (the old
-    # 2048 cap dropped 132-242 pairs per edge — reported via
-    # match_overflow telemetry, BENCH e2e round 4); the reference keeps
-    # every match (vector<ImgPair>). The [K, N] RANSAC inlier evaluation
-    # this sizes is trivial at either value.
+    # Static capacity for match pairs. 4096: 1440x1080 photo sets
+    # produce up to ~2.3k ratio-test matches per direction (a 2048 cap
+    # dropped 132-242 pairs per edge, reported via match_overflow
+    # telemetry); the reference keeps every match (vector<ImgPair>). The
+    # [K, N] RANSAC inlier evaluation this sizes is small at either value.
     max_matches: int = 4096
-    # 2-NN backend: "auto" uses the Pallas VMEM-resident kernel
-    # (ops/pallas_distance.py) on TPU, XLA elsewhere; "on"/"off" force a
-    # choice. The Pallas kernel does not vmap — batch paths that vmap the
-    # matcher (parallel/batched.py) must set "off".
-    pallas: str = "auto"
-    # L1 2-NN strategy. "exact" evaluates every descriptor pair's L1 on
-    # the VPU (12.9 ms/edge at 1440x1080's honest live counts — the
-    # matcher is the pipeline's largest device cost). "l2pre" computes L2
-    # candidates on the MXU (a [NB, NA] matmul at ~2% of the VPU cost),
-    # keeps the l2pre_m nearest per query, and rescores ONLY those by
-    # exact L1. "auto" = l2pre on TPU, exact elsewhere. The Lowe 0.5
-    # ratio only accepts unambiguous matches, which is why candidate-set
-    # rescoring preserves them almost perfectly: measured against the
-    # exact-L1 oracle over 40 directed pairs (~300k queries; 6 north-star
-    # 1440x1080 + 34 dataset2 600x800 directions,
-    # scripts/bench_r4_probe3.py round 4), decision diffs total 2 at
-    # m=32, 5 at m=16, 8 at m=8 — and 2 of those are approx_min_k
-    # recall, present even at m=32/HIGHEST. The reference's kd-forest ANN
+    # L1 2-NN strategy. "exact" evaluates every descriptor pair's L1 (one
+    # fused broadcast-abs-reduce). "l2pre" computes L2 candidates with
+    # one matmul, keeps the l2pre_m nearest per query, and rescores only
+    # those by exact L1. The Lowe 0.5 ratio only accepts unambiguous
+    # matches, which is why candidate-set rescoring preserves them almost
+    # perfectly: against the exact-L1 oracle over 40 directed pairs of
+    # the reference's photo sets (~300k queries), decision diffs totalled
+    # 2 at m=32, 5 at m=16 and 8 at m=8. The reference's kd-forest ANN
     # (vl/kdtree.c) is far noisier than any of these.
-    method: str = "auto"
-    # candidates rescored per query: rescore cost is linear in m (the
-    # candidate-row gather dominates). Round-5 sweep (probe
-    # match-fidelity, same 40 directed pairs as round 4, round-5
-    # detector): m=12 and m=16 are decision-IDENTICAL (10 diffs each vs
-    # the exact-L1 oracle over ~300k queries — the residual approx_min_k
-    # recall noise, present at every m); m=8 is 15. m=12 at measured
-    # 1.13 ms/edge bidir vs 16's 1.6-2.7; "--match-method exact" for
-    # parity runs.
+    method: str = "exact"
+    # candidates rescored per query for l2pre: rescore cost is linear in
+    # m; m=12 and m=16 made identical decisions over the same 40 pairs
     l2pre_m: int = 12
-    # the ordering stage needs only pair COUNTS vs THRESHOLD=20
-    # (ImageProcess.cpp:117-137); m=8 halves its rescore again (2.07
-    # ms/pair bidir, 8 total decision diffs over the sweep — count noise
-    # <=1 per direction, far inside the threshold margin)
+    # the ordering stage needs only pair counts vs THRESHOLD=20
+    # (ImageProcess.cpp:117-137); m=8 changed counts by <= 1 per direction
     l2pre_m_counts: int = 8
 
 
@@ -148,7 +110,7 @@ class RansacConfig:
     inlier_ratio: float = 0.5     # INLINER_RATIO
     threshold: float = 4.0        # RANSAC_THRESHOLD, ImageProcess.h:32
     seed: int = 666666            # srand(666666), ImageProcess.cpp:397
-    # TPU-native: hypotheses are vmapped; >= the reference's 72 sequential iters.
+    # hypotheses are vmapped; >= the reference's 72 sequential iters.
     n_hypotheses: int = 128
     # Local-optimization rounds after the refit (LO-RANSAC): re-score the
     # refit model and refit again when its consensus grew. Nearly free
@@ -194,13 +156,12 @@ class BlendConfig:
     # tint steps — recommended with seam_band, models/gain.py).
     gain_mode: str = "luma"
     # "f32" | "bf16" | "auto" (default): bfloat16 halves the pyramid
-    # chain's bytes and vector-op count — measured 1.65 vs 3.6-4.1 ms on a
-    # 1080p-scale canvas across two TPU sessions (RESULTS round-2f/3) but a
-    # wash-to-loss on small canvases where convert/relayout overhead
-    # dominates. "auto" resolves per blend canvas at trace time: bf16 when
-    # the canvas area exceeds ``bf16_auto_area`` pixels, f32 below (so the
-    # dataset1 golden-parity canvas, 0.55 Mpx, stays f32). Cost: a few u8
-    # levels of rounding in smooth gradients at bf16. FIR blur only.
+    # chain's bytes. "auto" resolves per blend canvas at trace time: bf16
+    # when the canvas area exceeds ``bf16_auto_area`` pixels, f32 below
+    # (so the dataset1 golden-parity canvas, 0.55 Mpx, stays f32). Cost: a
+    # few u8 levels of rounding in smooth gradients at bf16. FIR blur
+    # only. The gate's value changes output, so it stays until it is
+    # re-decided from a GPU trace.
     dtype: str = "auto"
     bf16_auto_area: int = 1_500_000
     # 0 (parity default) = blend the full canvas like the reference;
@@ -214,12 +175,11 @@ class BlendConfig:
     # blend a 4*seam_auto_band window at the seam instead of the full
     # canvas. Rationale: the full-canvas pyramid re-blends O(H x W_total)
     # per edge for a seam that moved one image width (reference behavior,
-    # ImageProcess.cpp:648-773) — at north-star canvases that is 7.2 ms
-    # vs 1.6 ms for the window (probe comp-ab round 5), and the outputs
-    # differ only in how far the low-frequency luma ramp spreads from
-    # the seam (measured MAD vs the full blend recorded in RESULTS.md).
-    # Every golden-parity canvas (dataset1, 0.56 Mpx) sits far below the
-    # gate and still takes the reference's exact full blend.
+    # ImageProcess.cpp:648-773); the outputs differ only in how far the
+    # low-frequency luma ramp spreads from the seam. Every golden-parity
+    # canvas (dataset1, 0.56 Mpx) sits far below the gate and still takes
+    # the reference's exact full blend. The value changes output, so it
+    # stays until it is re-decided from a GPU trace.
     # seam_auto_area=0 disables the policy (strict reference behavior at
     # every size); pair big exposure-mismatched sets with
     # gain_compensation (the narrow band cannot hide exposure steps).
@@ -273,7 +233,7 @@ class StitchConfig:
     # imgs[dst].projectedSrc)``). Off by default, like the reference.
     color_transfer: bool = False
     # Canvas sizes are bucketed (rounded up) to bound XLA recompilation;
-    # the TPU-native answer to the reference's unbounded canvas growth
+    # the answer to the reference's unbounded canvas growth
     # (ImageProcess.cpp:215-219).
     canvas_bucket: int = 128
     # planned=True registers every stitch edge in ONE device program (a

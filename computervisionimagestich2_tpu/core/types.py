@@ -2,7 +2,7 @@
 
 The reference stores per-image state as ``struct Image`` with a
 ``map<vector<float>, VlSiftKeypoint>`` keyed by descriptor
-(/root/reference/ImageProcess.h:50-55). TPU-native: fixed-capacity aligned
+(/root/reference/ImageProcess.h:50-55). Here: fixed-capacity aligned
 arrays with validity masks — descriptors and coordinates stay index-aligned,
 which removes the reference's O(log N * 128) reverse map lookup
 (ImageProcess.cpp:333-338) entirely.

@@ -15,7 +15,7 @@ Levels: floor(log2(max(w,h))) in the root variant (cpp:675-676) or
 floor(log2(min(w,h))) in ex6 (src/ex6/ImageProcess.cpp:662-665).
 
 The whole blend compiles to one fused XLA program per canvas shape; the
-pyramids are chains of separable convs + tiny resize matmuls on MXU/VPU.
+pyramids are chains of separable convs + tiny resize matmuls.
 """
 from __future__ import annotations
 
@@ -47,9 +47,7 @@ def _blur_hwc(img: jnp.ndarray, sigma: float,
         return gaussian_blur(img, sigma)
     # blur [H, W, C] in place along axes (1, 0) — W then H, the same op
     # order as gaussian_blur — without the moveaxis round trip (each
-    # moveaxis of the minor channel dim is a full canvas relayout; the
-    # level-0 blend blur measured 2.78 ms of which the relayouts were
-    # most, see RESULTS round-2f)
+    # moveaxis of the minor channel dim is a full canvas copy)
     from ..ops.gaussian import _conv1d_axis, gauss_taps
     taps = jnp.asarray(gauss_taps(sigma)).astype(img.dtype)
     return _conv1d_axis(_conv1d_axis(img, taps, 1), taps, 0)
@@ -68,9 +66,9 @@ AUTO_BF16_AREA = 1_500_000
 def resolve_dtype(dtype: str, h: int, w: int,
                   area_threshold: int = AUTO_BF16_AREA) -> str:
     """Resolve the "auto" blend-precision policy at trace time: bf16 when
-    the blend canvas exceeds ``area_threshold`` pixels (measured a ~2.2x
-    win at 1080p-canvas scale, a wash below — RESULTS round-2f/3), f32
-    otherwise. Shapes are static, so this adds no compile variants beyond
+    the blend canvas exceeds ``area_threshold`` pixels, f32 otherwise
+    (the gate's value changes output; re-deciding it from a GPU trace is
+    queued in ROADMAP.md). Shapes are static, so this adds no compile variants beyond
     the canvas shape itself."""
     if dtype != "auto":
         return dtype
@@ -133,7 +131,7 @@ def blend_stacked(s0: jnp.ndarray, levels: int,
     # -- gaussian pyramids (cpp:705-715)
     # a, b, mask stacked along channels: blur/resize are per-channel
     # independent, so one 7-channel chain computes the identical values
-    # with a third of the op-chain (and better VPU utilization)
+    # with a third of the op-chain
     s_pyr = [s0]
     for i in range(1, levels):
         # clamp to >= 1: with max-dim level counts a narrow canvas would hit
@@ -144,12 +142,8 @@ def blend_stacked(s0: jnp.ndarray, levels: int,
         if blur_impl == "fir_fused":
             # fused FIR-blur + half-shrink stencil (ops.resize): identical
             # values modulo float reassociation and ~half the multiply-
-            # adds — but MEASURED SLOWER than the unfused pair on real
-            # blend canvases (+3.2-3.5 ms/edge at north-star scale even
-            # after the phase-decomposition fix; XLA fuses the unfused
-            # blur+strided-shrink chain better than the composite
-            # stencil). Kept as an opt-in for the record
-            # (scripts/bench_r4_probe6.py, RESULTS round 4b).
+            # adds; opt-in, as XLA may fuse the unfused blur +
+            # strided-shrink chain better (not measured on the GPU).
             s_pyr.append(blur_shrink_hwc(s_pyr[-1], hp, wp, blur_sigma))
         else:
             s_pyr.append(cimg_resize(
@@ -218,9 +212,7 @@ def blend_edge(a: jnp.ndarray, b: jnp.ndarray, bcfg,
         # above it — the SAME predicate apply_composite_gain uses, so
         # band and implied gain can never disagree. The window dtype is
         # pinned to the full-canvas policy's choice so the gate cannot
-        # flip a big canvas back to f32 (probe comp-ab: the band-128
-        # window under 1.5 Mpx resolved f32 and ran 2.8x slower than the
-        # band-256 bf16 window).
+        # flip a big canvas back to f32.
         band = getattr(bcfg, "seam_auto_band", 256)
     if band > 0:
         wb = 4 * band

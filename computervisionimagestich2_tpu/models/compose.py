@@ -6,8 +6,7 @@ equivalent to the canvas sizing and fill steps of the stitch loop
 
 - ``canvas_plan``  <- getMin/MaxX/YAfterWarping + the min/max clamps
   (ImageProcess.cpp:206-216, 532-594). Pure host math on 8 floats — the
-  TPU-native split puts shape decisions on the host so device shapes stay
-  static (SURVEY.md §5 "Long-context" analog: canvas growth).
+  split puts shape decisions on the host so device shapes stay static (SURVEY.md §5 "Long-context" analog: canvas growth).
 - ``composite``    <- warpingImageByHomography + movingImageByOffset
   (ImageProcess.cpp:596-620) as two fused gather kernels on one canvas.
 """

@@ -8,8 +8,8 @@ Equivalent of class equalization (/root/reference/equalization.cpp):
   luma quirk, equalization.cpp:79), equalize Y only, -> RGB with clamps
   (equalization.cpp:74-131).
 
-TPU-native: the histogram is a one-hot reduction (bincount), the CDF a
-cumsum, the mapping a 256-entry LUT gather — one fused kernel, replacing the
+Here the histogram is a one-hot reduction (bincount), the CDF a cumsum,
+the mapping a 256-entry LUT lookup — one fused kernel, replacing the
 reference's three image passes.
 """
 from __future__ import annotations
@@ -26,8 +26,8 @@ from ..ops.warp import trunc_u8
 def _radix_onehots(idx: jnp.ndarray):
     """Split u8 indices into exact [-..., 16] one-hots of the high and low
     nibbles. Any 256-way per-pixel operation then factors through two
-    16-wide compares + an MXU contraction instead of a 256-wide VPU loop
-    (16x fewer compares); all values are 0/1 or small integers, exactly
+    16-wide compares + a matmul contraction instead of a 256-wide compare
+    loop (16x fewer compares); all values are 0/1 or small integers, exactly
     representable at any matmul precision, so results are bit-identical
     to the 256-wide form."""
     nib = jnp.arange(16, dtype=jnp.int32)
@@ -40,9 +40,10 @@ def _equalize_lut(channel_u8: jnp.ndarray) -> jnp.ndarray:
     """LUT from a u8 channel: mapped[i] = round(255 * cdf[i])
     (equalization.cpp:57-65). The histogram is a radix-16 factored
     one-hot contraction: hist[h*16+l] = sum_p hi[p,h]*lo[p,l] — one
-    [16, N] x [N, 16] MXU matmul replaces the N x 256 compare+reduce
-    (scatter-add bincount is ~9 ns/element on TPU; the dense compare
-    form was 256 VPU ops/pixel). Counts < 2^24 stay exact in f32."""
+    [16, N] x [N, 16] matmul replaces the N x 256 compare+reduce and a
+    scatter-add bincount (which of the three is fastest on the GPU is not
+    measured). Counts < 2^24 stay exact in f32, TF32 operands included
+    (they are 0/1)."""
     n = channel_u8.size
     vals = channel_u8.astype(jnp.int32).reshape(-1)
     hi, lo = _radix_onehots(vals)
@@ -54,10 +55,10 @@ def _equalize_lut(channel_u8: jnp.ndarray) -> jnp.ndarray:
 
 
 def _apply_lut(channel_u8: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
-    """mapped = lut[channel] without a gather: per-pixel 256-entry gathers
-    serialize on TPU (13.5 ms at canvas scale). Radix-16 factored form:
-    mapped = sum_{h,l} hi[p,h] * lo[p,l] * lut[h*16+l] — an MXU contraction
-    of the high nibble with the [16, 16] LUT, then a 16-wide VPU dot with
+    """mapped = lut[channel] without a per-pixel gather. Radix-16 factored
+    form: mapped = sum_{h,l} hi[p,h] * lo[p,l] * lut[h*16+l] — a matmul
+    contraction of the high nibble with the [16, 16] LUT, then a 16-wide dot
+    with
     the low-nibble one-hot. LUT entries are integers in [0, 255], exact in
     bf16/f32, so this is bit-identical to the 256-wide one-hot (and to the
     gather)."""

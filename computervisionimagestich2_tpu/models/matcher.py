@@ -5,7 +5,7 @@ descriptor of image B, find its 2 nearest neighbors among image A's
 descriptors (VlDistanceL1, 1 tree — ImageProcess.cpp:280), apply the Lowe
 ratio test (< 0.5), and emit (A keypoint, B keypoint) coordinate pairs.
 
-TPU-native: the tree descent becomes one dense [NB, NA] distance + top-2
+The tree descent becomes one dense [NB, NA] distance + top-2
 (ops.distance), and the reference's descriptor-keyed reverse map lookup
 (ImageProcess.cpp:333-338) disappears because descriptors and coordinates are
 index-aligned (core.types.Features). Exact search can only increase match
@@ -25,17 +25,17 @@ from ..ops.compaction import compact_indices
 
 
 @partial(jax.jit, static_argnames=("ratio", "distance", "max_matches",
-                                   "pallas", "method", "l2pre_m"))
+                                   "method", "l2pre_m"))
 def match_features(feats_a: Features, feats_b: Features,
                    ratio: float = 0.5, distance: str = "l1",
                    max_matches: int = 2048,
-                   pallas: str = "auto", method: str = "auto",
+                   method: str = "exact",
                    l2pre_m: int = 32) -> MatchPairs:
     """Pairs with src = A's keypoint, dst = B's keypoint (the reference's
     ImgPair(left, right) order, ImageProcess.cpp:341)."""
     ok, idx_a = dist_ops.ratio_match(
         feats_b.desc, feats_a.desc, feats_b.valid, feats_a.valid,
-        ratio, distance, pallas, method, l2pre_m)
+        ratio, distance, method, l2pre_m)
     sel, valid = compact_indices(ok, max_matches)
     src_xy = feats_a.xy[idx_a[sel]]
     dst_xy = feats_b.xy[sel]
@@ -44,11 +44,11 @@ def match_features(feats_a: Features, feats_b: Features,
 
 
 @partial(jax.jit, static_argnames=("ratio", "distance", "max_matches",
-                                   "pallas", "method", "l2pre_m"))
+                                   "method", "l2pre_m"))
 def match_features_bidir(feats_a: Features, feats_b: Features,
                          ratio: float = 0.5, distance: str = "l1",
                          max_matches: int = 2048,
-                         pallas: str = "auto", method: str = "auto",
+                         method: str = "exact",
                          l2pre_m: int = 32):
     """Both getImgPair directions from ONE distance evaluation.
 
@@ -59,7 +59,7 @@ def match_features_bidir(feats_a: Features, feats_b: Features,
     """
     okb, idx_a, oka, idx_b = dist_ops.ratio_match_bidir(
         feats_b.desc, feats_a.desc, feats_b.valid, feats_a.valid,
-        ratio, distance, pallas, method, l2pre_m)
+        ratio, distance, method, l2pre_m)
 
     sel_b, valid_b = compact_indices(okb, max_matches)
     ab = MatchPairs(src_xy=feats_a.xy[idx_a[sel_b]],
@@ -72,22 +72,22 @@ def match_features_bidir(feats_a: Features, feats_b: Features,
     return ab, ba
 
 
-@partial(jax.jit, static_argnames=("ratio", "distance", "pallas", "method",
+@partial(jax.jit, static_argnames=("ratio", "distance", "method",
                                    "l2pre_m"))
 def match_count(feats_a: Features, feats_b: Features,
                 ratio: float = 0.5, distance: str = "l1",
-                pallas: str = "auto", method: str = "auto",
+                method: str = "exact",
                 l2pre_m: int = 32) -> jnp.ndarray:
     """Number of ratio-test matches (the match-graph edge weight,
     ImageProcess.cpp:131-135)."""
     ok, _ = dist_ops.ratio_match(
         feats_b.desc, feats_a.desc, feats_b.valid, feats_a.valid,
-        ratio, distance, pallas, method, l2pre_m)
+        ratio, distance, method, l2pre_m)
     return jnp.sum(ok.astype(jnp.int32))
 
 
 def match_config_call(feats_a: Features, feats_b: Features,
                       cfg: MatchConfig) -> MatchPairs:
     return match_features(feats_a, feats_b, cfg.ratio_threshold,
-                          cfg.distance, cfg.max_matches, cfg.pallas,
-                          cfg.method, cfg.l2pre_m)
+                          cfg.distance, cfg.max_matches, cfg.method,
+                          cfg.l2pre_m)

@@ -6,9 +6,9 @@ sample 4 distinct pairs, solve the 8-coefficient bilinear warp, count inliers
 ImageProcess.cpp:478-480), keep the best, refit on its inliers by least
 squares (getInlinerHomography, ImageProcess.cpp:500-529).
 
-TPU-native: all K hypotheses run as one batch — K 4-point solves via a
-batched 4x4 linear solve, one [K, N] reprojection/inlier evaluation on the
-VPU, argmax, then a masked least-squares refit. K defaults to 128 (>= the
+All K hypotheses run as one batch — K 4-point solves via a batched 4x4
+linear solve, one [K, N] reprojection/inlier evaluation, argmax, then a
+masked least-squares refit. K defaults to 128 (>= the
 reference's 72 iterations computed from confidence 0.99 / inlier ratio 0.5).
 RNG is threefry (jax.random); parity is on the refit model, which is stable
 across RNGs at this hypothesis count (SURVEY.md §7 "RANSAC RNG").
@@ -70,9 +70,8 @@ def ransac_warp(pairs: MatchPairs, key: jax.Array,
     # uniform ints over the live PREFIX (matcher output is prefix-
     # compacted): [K, 4] threefry draws. The previous
     # jax.random.choice(replace=False, p=valid/n) ran a full Gumbel
-    # perturbation + top-k over the [4096] capacity PER HYPOTHESIS —
-    # 1.25 ms per direction at north-star caps, the single largest
-    # edge-plan cost (probe plan-ab round 5); this form is ~free.
+    # perturbation + top-k over the [4096] capacity PER HYPOTHESIS; this
+    # form is a handful of integer ops.
     # The reference re-rolls duplicate indices (ImageProcess.cpp:409-418)
     # — here a duplicate within a sample (~6/n_live chance per
     # hypothesis) makes the 4-point system singular -> nan/inf model ->

@@ -1,4 +1,4 @@
-"""SIFT feature extraction — TPU-native scale-space driver.
+"""SIFT feature extraction — scale-space driver.
 
 Re-design of VLFeat's octave-at-a-time streaming filter
 (/root/reference/vl/sift.c: vl_sift_new:217, vl_sift_process_first_octave:322,
@@ -28,23 +28,32 @@ import jax.numpy as jnp
 from ..config import SiftConfig
 from ..core.types import Features
 from ..ops import sift_kernels as sk
+from ..ops import sift_triton
 from ..ops.gaussian import gaussian_blur
 from ..ops.resize import vlfeat_downsample, vlfeat_upsample_rows
 
 
-def _pallas_enabled(cfg: SiftConfig) -> bool:
-    """Trace-time backend choice for the per-keypoint stages.
-    "interpret" runs the Pallas walks (and the bucket dispatch around
-    them) through the interpreter — CPU-testable coverage of the exact
-    TPU code path."""
-    if cfg.pallas in ("on", "interpret"):
-        return True
+def kernel_route(cfg: SiftConfig) -> str | None:
+    """Backend of the per-keypoint orientation and descriptor stages:
+    "triton" (ops/sift_triton.py compiled for the GPU), "interpret" (the
+    same kernels through the Pallas interpreter, for CPU tests) or None
+    (the dense XLA batch of ops/sift_kernels.py).
+
+    "auto" takes the kernels where the program will run on a GPU: the
+    platform of ``jax.default_device`` when one is set, else the default
+    backend."""
+    if cfg.pallas == "interpret":
+        return "interpret"
     if cfg.pallas == "off":
-        return False
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
+        return None
+    if cfg.pallas != "auto":
+        raise ValueError(f"SiftConfig.pallas={cfg.pallas!r}")
+    dev = jax.config.jax_default_device
+    if dev is None:
+        platform = jax.default_backend()
+    else:
+        platform = dev if isinstance(dev, str) else dev.platform
+    return "triton" if platform == "gpu" else None
 
 
 def scale_space_sigmas(cfg: SiftConfig):
@@ -75,16 +84,12 @@ def build_octave(base: jnp.ndarray, cfg: SiftConfig, first_sigma: float | None):
 
 def candidate_capacity(h: int, w: int) -> int:
     """Static candidate-list capacity per octave. Strict 26-neighbor extrema
-    are sparse: measured on the north-star 1440x1080 bench inputs
-    (scripts/bench_r4_probe4.py C1), octave-0 finds 6.2-7.3k (4.0-4.7 /
-    1000 px) and later octaves fall off ~7x per octave. area/128
-    (7.8/1000) keeps ~1.66x headroom over the densest measured image.
-    The refine stage is GATHER-bound in this capacity (round-5
-    attribution: ~11 point-gathers per slot — 5 chase steps + the
-    acceptance fields — at ~9 ns each, so every 1k slots is ~0.1 ms);
-    the round-4 area/96 sizing (16.2k at 1440x1080) paid ~0.5 ms/image
-    for headroom never touched. Overflow drops trailing candidates in
-    scan order and is reported via telemetry (cand_dropped)."""
+    are sparse: on photographs upscaled to 1440x1080, octave 0 found
+    6.2-7.3k (4.0-4.7 per 1000 px) and later octaves fall off ~7x per
+    octave. area/128 (7.8 per 1000 px) keeps ~1.66x headroom over the
+    densest such image. The refine stage's point gathers scale with this
+    capacity, so headroom is not free. Overflow drops trailing candidates
+    in scan order and is reported via telemetry (cand_dropped)."""
     return max(1024, min((h * w) // 128, 32768))
 
 
@@ -101,82 +106,18 @@ def keypoint_capacity(h: int, w: int, cap_max: int) -> int:
 def total_keypoint_capacity(h: int, w: int, cap_max: int) -> int:
     """Static final feature capacity for an input of h x w pixels.
 
-    Auto (cap_max == 0) scales 1 slot / 160 px. Measured densities on the
-    upscaled Input/ bench photos: 1 keypoint / 188 px at 1440x1080 (finds
-    7.7-8.3k/image, scripts/bench_r4_probe.py round 4) — the round-3
-    1/256-px heuristic (cap 6144 there) dropped ~2k keypoints per image on
-    exactly the north-star inputs (VERDICT r3 weak #1). 1/160 px gives
-    ~17% headroom over the densest bench image (9728 slots at 1440x1080)
-    and still never binds at the app's native 384x512 (2048 minimum, finds
-    ~1.4k). The live-count-bounded matcher kernels make unused slots cost
-    ~nothing, so headroom is cheap. Rounded UP to a multiple of 128: the
-    Pallas 2-NN matcher requires lane-tile-aligned descriptor counts
-    (ops.distance gate ``shape[0] % 128 == 0``) — an unaligned cap
-    silently demotes every match to the HBM-materialized XLA path."""
+    Auto (cap_max == 0) scales 1 slot / 160 px. Photographs upscaled to
+    1440x1080 measured 1 keypoint / 188 px (7.7-8.3k per image); a
+    1/256-px cap dropped ~2k keypoints per image there. 1/160 px gives
+    ~17% headroom over the densest such image (9728 slots at 1440x1080)
+    and still never binds at the app's native 384x512 (2048 minimum,
+    finds ~1.4k). Matching trims the stacked features to the live prefix
+    (Stitcher._matching_feats), so headroom costs little. Rounded up to a
+    multiple of 128."""
     if cap_max:
         return cap_max
     cap = max(2048, min((h * w) // 160, 16384))
     return -(-cap // 128) * 128
-
-
-def _sigma_for_sn(cfg: SiftConfig, sn: float) -> float:
-    return cfg.sigma0 * 2.0 ** (min(float(cfg.s_max), sn) / cfg.n_levels)
-
-
-def _desc_radius_for_sn(cfg: SiftConfig, sn: float) -> int:
-    sbp = cfg.magnif * _sigma_for_sn(cfg, sn)
-    return int(math.floor(
-        math.sqrt(2.0) * sbp * (cfg.n_spatial_bins + 1) / 2.0 + 0.5))
-
-
-def _ori_radius_for_sn(cfg: SiftConfig, sn: float) -> int:
-    # W = floor(3 * 1.5 * sigma), vl/sift.c:934
-    return max(int(math.floor(3.0 * 1.5 * _sigma_for_sn(cfg, sn))), 1)
-
-
-def _walk_buckets(cfg: SiftConfig, l: int, radius_for_sn, r_max: int):
-    """Small-radius walk buckets for level ``l``: [(radius, sn_hi), ...]
-    ascending, radii < r_max (the level's catch-all).
-
-    The per-keypoint walk cost is rows(P)/pack(P) (ops/pallas_sift) and a
-    level's keypoints concentrate at |b_s| <= 0.5 after the refine chase
-    (sn = l + b_s; the catch-all covers the |b_s| < 1.5 acceptance tail,
-    vl/sift.c:529-531) — so walking everything at the level's worst-case
-    radius pays up to ~2x per keypoint. Candidate radii are taken at sn
-    quantiles and deduped to one (largest) radius per (rows, pack) cost
-    class; membership is by each keypoint's OWN window radius wr (the
-    kernel's wr bound), so a keypoint never lands in a bucket that would
-    truncate its window."""
-    from ..ops import pallas_sift as ps
-
-    def cost(r: int) -> float:
-        p = 2 * r + 1
-        return ps._rows(p) / ps._pack(p)
-
-    cands = []
-    for q in (-0.25, 0.0, 0.25, 0.5):
-        r = radius_for_sn(cfg, l + q)
-        if r < r_max:
-            cands.append((r, l + q))
-    # each extra bucket costs a compaction + padded-plane pair + (for ori)
-    # a scatter-back — keep a candidate only if it beats the next kept
-    # bucket by >= 15% per keypoint
-    kept, above = [], cost(r_max)
-    for r, sn in sorted(set(cands), reverse=True):
-        if cost(r) <= 0.85 * above:
-            kept.append((r, sn))
-            above = cost(r)
-    return sorted(kept)
-
-
-def _bucket_cap(cap_l: int, sn_lo: float, sn_hi: float, l: int) -> int:
-    """Static capacity for a walk bucket covering sn in (sn_lo, sn_hi]:
-    the uniform-b_s expectation of the population fraction plus a 30%
-    absolute margin (live-count-bounded walks make dead slots ~free;
-    overflow is telemetry-reported, never silent)."""
-    frac_hi = min(max(sn_hi - (l - 0.5), 0.0), 1.0)
-    frac_lo = min(max(sn_lo - (l - 0.5), 0.0), 1.0)
-    return max(128, int(math.ceil(cap_l * (frac_hi - frac_lo + 0.30))))
 
 
 @partial(jax.jit, static_argnames=("cfg", "octave_index"))
@@ -191,44 +132,27 @@ def _process_octave(octave: jnp.ndarray, cfg: SiftConfig, octave_index: int):
     cap_cand = candidate_capacity(h, w)
     cap_kp = keypoint_capacity(h, w, cfg.max_keypoints_per_octave)
 
-    use_pallas = _pallas_enabled(cfg)
-    interp = cfg.pallas == "interpret"
+    route = kernel_route(cfg)
+    interp = route == "interpret"
     dog = sk.dog_stack(octave)
-    if use_pallas and cfg.detect_impl == "pallas":
-        # fused streaming detect (ops/pallas_detect.py): one pass over
-        # the DoG at HBM bandwidth with in-kernel extrema + scan-order
-        # append — replaces the dense mask + bitonic-sort compaction
-        # (same coords/valid, same truncation semantics)
-        from ..ops.pallas_detect import detect_compact_pallas
-
-        coords, cvalid, n_cand = detect_compact_pallas(
-            dog, cfg.peak_thresh, cap_cand, interpret=interp)
-        # dropped = uncapped hits minus actually-kept slots: covers BOTH
-        # the global capacity and the kernel's per-row _ROWCAP truncation
-        # (a >128-extrema row would otherwise lose hits with dropped=0 —
-        # VERDICT r1 #8: truncation must be reported, never silent)
-        cand_dropped = jnp.maximum(
-            n_cand - jnp.sum(cvalid.astype(jnp.int32)), 0)
-    else:
-        mask = sk.extrema_mask(dog, cfg.peak_thresh)
-        coords, cvalid = sk.compact_mask(mask, cap_cand)
-        n_cand = jnp.sum(mask.astype(jnp.int32))
-        # telemetry: candidates dropped by the static capacity
-        cand_dropped = jnp.maximum(n_cand - cap_cand, 0)
+    mask = sk.extrema_mask(dog, cfg.peak_thresh)
+    coords, cvalid = sk.compact_mask(mask, cap_cand)
+    n_cand = jnp.sum(mask.astype(jnp.int32))
+    # telemetry: candidates dropped by the static capacity
+    cand_dropped = jnp.maximum(n_cand - cap_cand, 0)
     ok, x, y, sigma, lvl, resp = sk.refine_keypoints(
         dog, coords, cvalid, w, h, cfg.peak_thresh, cfg.edge_thresh,
         cfg.s_min, cfg.s_max, xper, cfg.sigma0, cfg.n_levels)
 
     # gradient field for levels s in [s_min+1, s_max-2] (octave indices
-    # 1..S), plane-major [S, 2, H, W] (see polar_gradient layout note)
+    # 1..S), plane-major [S, 2, H, W]: the kernels read one plane each
     grad = sk.polar_gradient(octave[1:1 + cfg.n_levels])
 
     # per-level batches: level-l keypoints have sn < l + 1.5 (|b_s| < 1.5),
     # so their orientation/descriptor windows are tighter — the dominant
     # per-keypoint cost scales with the realistic patch, not the worst case.
-    # Extrema density halves per scale level (measured l1/l0 ~ 0.35 across
-    # datasets, RESULTS round 3), so upper levels get half the slots — the
-    # walk grids, compactions, and peak extraction all scale with cap_l.
+    # Extrema density halves per scale level (measured l1/l0 ~ 0.35 on the
+    # reference's datasets), so upper levels get half the slots.
     def cap_level(l: int) -> int:
         return max(128, (2 * cap_kp) // ((cfg.n_levels + 1) * (2 if l else 1)))
     results = []
@@ -242,69 +166,15 @@ def _process_octave(octave: jnp.ndarray, cfg: SiftConfig, octave_index: int):
         xl, yl, sl, rl = x[kp_idx], y[kp_idx], sigma[kp_idx], resp[kp_idx]
 
         r_ori = sk.ori_patch_radius(cfg.sigma0, cfg.n_levels, cfg.s_max, l)
-        # interleaved [1, H, W, 2] view for the XLA fallback kernels
-        # (their patch gather wants minor-dim planes); the pallas path
-        # slices the plane-major form directly
+        # interleaved [1, H, W, 2] view for the XLA kernels (their patch
+        # gather wants minor-dim planes)
         grad_l = jnp.moveaxis(grad[l:l + 1], 1, -1)
-        if use_pallas and 2 * r_ori + 1 <= 128:
-            from ..ops import pallas_sift as ps
-
-            # wr BUCKETS (round 4): walk each keypoint near ITS window
-            # radius wr = max(floor(3*1.5*sigma), 1) (vl/sift.c:934-940)
-            # instead of the level's |b_s| < 1.5 worst case. The level's
-            # keypoint list is BUCKET-SORTED (stable argsort on the wr
-            # class; invalid slots sort last), each bucket walks a
-            # dynamic-slice window of the sorted arrays, and the per-
-            # bucket outputs — zero beyond each bucket's live count —
-            # reassemble by roll-and-add (a scatter-back variant measured
-            # ~1 ms/level slower: TPU row scatters serialize,
-            # scripts/bench_r4_probe6.py round 4). Downstream stages use
-            # the sorted order; within-level order is free to change
-            # (the final response-ranked selection re-sorts globally).
-            osegs = _walk_buckets(cfg, l, _ori_radius_for_sn, r_ori)
-            radii = [r for r, _ in osegs] + [r_ori]
-            if len(radii) > 1:
-                wr_o = jnp.maximum(jnp.floor(4.5 * sl / xper), 1.0)
-                bid = sum(((wr_o > r).astype(jnp.int32)
-                           for r in radii[:-1]), jnp.zeros((), jnp.int32))
-                bid = jnp.where(kp_valid, bid, jnp.int32(len(radii)))
-                iota = jnp.arange(cap_l, dtype=jnp.int32)
-                order = jnp.argsort(bid * jnp.int32(cap_l + 1) + iota)
-                xl, yl, sl, rl = (xl[order], yl[order], sl[order],
-                                  rl[order])
-                kp_valid = kp_valid[order]
-                bid_s = bid[order]
-                counts = jnp.stack(
-                    [jnp.sum((bid_s == i).astype(jnp.int32))
-                     for i in range(len(radii))])
-                starts = jnp.concatenate([jnp.zeros(1, jnp.int32),
-                                          jnp.cumsum(counts)[:-1]])
-                pads = [jnp.pad(a, (0, cap_l)) for a in (xl, yl, sl)]
-                hist, o_ok = None, None
-                for b, r_b in enumerate(radii):
-                    st = starts[b]
-                    xb, yb, sb = (jax.lax.dynamic_slice(a, (st,), (cap_l,))
-                                  for a in pads)
-                    mod_o = ps.pad_for_patches(grad[l, 0], r_b)
-                    ang_o = ps.pad_for_patches(grad[l, 1], r_b)
-                    hb, gb = ps.orientation_hist_pallas(
-                        mod_o, ang_o, xb / xper, yb / xper, sb / xper,
-                        counts[b][None], w, h, r_b, cfg.n_ori_bins,
-                        interpret=interp)
-                    ob = gb & (iota < counts[b])
-                    hb = jnp.roll(hb, st, axis=0)
-                    ob = jnp.roll(ob, st)
-                    hist = hb if hist is None else hist + hb
-                    o_ok = ob if o_ok is None else o_ok | ob
-            else:
-                mod_o = ps.pad_for_patches(grad[l, 0], r_ori)
-                ang_o = ps.pad_for_patches(grad[l, 1], r_ori)
-                n_l = jnp.sum(kp_valid.astype(jnp.int32))[None]
-                hist, o_ok = ps.orientation_hist_pallas(
-                    mod_o, ang_o, xl / xper, yl / xper, sl / xper, n_l,
-                    w, h, r_ori, cfg.n_ori_bins, interpret=interp)
+        if route:
+            hist, o_ok = sift_triton.orientation_hist(
+                grad[l, 0], grad[l, 1], xl / xper, yl / xper, sl / xper,
+                kp_valid, w, h, r_ori, cfg.n_ori_bins, interpret=interp)
             angles, a_valid = sk.orientation_peaks(
-                hist, o_ok & kp_valid, cfg.n_ori_bins, cfg.max_angles)
+                hist, o_ok, cfg.n_ori_bins, cfg.max_angles)
         else:
             grad_pad = jnp.pad(grad_l, ((0, 0), (r_ori, r_ori),
                                         (r_ori, r_ori), (0, 0)))
@@ -319,68 +189,22 @@ def _process_octave(octave: jnp.ndarray, cfg: SiftConfig, octave_index: int):
         rep = lambda a: jnp.repeat(a, cfg.max_angles, axis=0)
         ka_x, ka_y, ka_sigma, ka_resp = map(rep, (xl, yl, sl, rl))
         ka_angle = angles.reshape(-1)
+        da_idx, d_valid = sk.compact_indices(ka_valid, cap_d)
+        desc_dropped += jnp.maximum(
+            jnp.sum(ka_valid.astype(jnp.int32)) - cap_d, 0)
+        d_x, d_y, d_sigma, d_angle, d_resp = (
+            ka_x[da_idx], ka_y[da_idx], ka_sigma[da_idx],
+            ka_angle[da_idx], ka_resp[da_idx])
 
         r_desc = sk.desc_patch_radius(cfg.sigma0, cfg.n_levels, cfg.s_max,
                                       cfg.magnif, cfg.n_spatial_bins, l)
-        if use_pallas and 2 * r_desc + 1 <= 128 \
-                and cfg.n_spatial_bins ** 2 * cfg.n_desc_ori_bins == 128:
-            from ..ops import pallas_sift as ps
-
-            # SIGMA BUCKETS (round-3 pair -> round-4 generalized list):
-            # walk each keypoint near ITS window radius instead of the
-            # level's |b_s| < 1.5 worst case — walk cost per keypoint is
-            # rows(P)/pack(P), so e.g. level-0 keypoints at b_s ~ 0
-            # (wr ~ 24) walked at the worst-case r=40 pay ~2.3x. Radii
-            # come from sn quantiles deduped per cost class
-            # (_walk_buckets); membership replicates the kernel's own
-            # window bound wr = floor(sqrt(2)*sbp*(NBP+1)/2+0.5)
-            # (vl/sift.c:1310-1311) so a keypoint NEVER lands in a bucket
-            # whose patch truncates its window. Caps: uniform-b_s
-            # population + 30% margin (_bucket_cap); the catch-all tail
-            # keeps cap_l//4 (measured <= 7 keypoints at 1080p, but
-            # cap_l//8 bound at 600x800 — dataset3 image 10, round 4).
-            sbp_kp = cfg.magnif * ka_sigma / xper + 2.220446049250313e-16
-            wr_kp = jnp.floor(math.sqrt(2.0) * sbp_kp
-                              * (cfg.n_spatial_bins + 1) / 2.0 + 0.5)
-            dsegs = _walk_buckets(cfg, l, _desc_radius_for_sn, r_desc)
-            if dsegs:
-                buckets = []
-                sn_prev, wr_prev = l - 0.5, 0.0
-                for r_b, sn_hi in dsegs:
-                    cap_b = min(cap_d,
-                                _bucket_cap(cap_l, sn_prev, sn_hi, l))
-                    buckets.append((r_b, ka_valid & (wr_kp > wr_prev)
-                                    & (wr_kp <= r_b), cap_b))
-                    sn_prev, wr_prev = sn_hi, float(r_b)
-                buckets.append((r_desc, ka_valid & (wr_kp > wr_prev),
-                                max(128, cap_l // 4)))
-            else:
-                buckets = [(r_desc, ka_valid, cap_d)]
-            for r_b, sel_b, cap_b in buckets:
-                db_idx, b_valid = sk.compact_indices(sel_b, cap_b)
-                desc_dropped += jnp.maximum(
-                    jnp.sum(sel_b.astype(jnp.int32)) - cap_b, 0)
-                b_x, b_y, b_sigma, b_angle, b_resp = (
-                    ka_x[db_idx], ka_y[db_idx], ka_sigma[db_idx],
-                    ka_angle[db_idx], ka_resp[db_idx])
-                mod_d = ps.pad_for_patches(grad[l, 0], r_b)
-                ang_d = ps.pad_for_patches(grad[l, 1], r_b)
-                n_b = jnp.sum(b_valid.astype(jnp.int32))[None]
-                desc, d_ok = ps.descriptors_pallas(
-                    mod_d, ang_d, b_x / xper, b_y / xper, b_sigma / xper,
-                    b_angle, n_b, w, h, r_b, cfg.magnif,
-                    cfg.n_spatial_bins / 2.0, cfg.n_spatial_bins,
-                    cfg.n_desc_ori_bins, interpret=interp,
-                    walk_dtype=getattr(cfg, "walk_dtype", "f32"))
-                results.append((desc, jnp.stack([b_x, b_y], axis=-1),
-                                b_sigma, d_ok, b_resp))
+        if route:
+            desc, d_ok = sift_triton.descriptors(
+                grad[l, 0], grad[l, 1], d_x / xper, d_y / xper,
+                d_sigma / xper, d_angle, d_valid, w, h, r_desc, cfg.magnif,
+                cfg.n_spatial_bins / 2.0, cfg.n_spatial_bins,
+                cfg.n_desc_ori_bins, interpret=interp)
         else:
-            da_idx, d_valid = sk.compact_indices(ka_valid, cap_d)
-            desc_dropped += jnp.maximum(
-                jnp.sum(ka_valid.astype(jnp.int32)) - cap_d, 0)
-            d_x, d_y, d_sigma, d_angle, d_resp = (
-                ka_x[da_idx], ka_y[da_idx], ka_sigma[da_idx],
-                ka_angle[da_idx], ka_resp[da_idx])
             grad_pad2 = jnp.pad(grad_l, ((0, 0), (r_desc, r_desc),
                                          (r_desc, r_desc), (0, 0)))
             desc, d_ok = sk.descriptors(
@@ -388,8 +212,8 @@ def _process_octave(octave: jnp.ndarray, cfg: SiftConfig, octave_index: int):
                 d_y / xper, d_sigma / xper, d_angle, d_valid, w, h, r_desc,
                 cfg.magnif, cfg.n_spatial_bins / 2.0, cfg.n_spatial_bins,
                 cfg.n_desc_ori_bins)
-            results.append((desc, jnp.stack([d_x, d_y], axis=-1), d_sigma,
-                            d_ok, d_resp))
+        results.append((desc, jnp.stack([d_x, d_y], axis=-1), d_sigma,
+                        d_ok, d_resp))
 
     desc = jnp.concatenate([r[0] for r in results])
     xy = jnp.concatenate([r[1] for r in results])

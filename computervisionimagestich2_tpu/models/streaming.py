@@ -5,7 +5,7 @@ batch): frames arrive one at a time (e.g. 30 fps video), each is registered
 against the features of the previous frame (already in canvas coordinates),
 composited, and blended into a rolling canvas.
 
-TPU-native specifics:
+Device specifics:
 - Canvas sizes are rounded up to ``bucket``-pixel multiples so XLA compiles
   a handful of canvas shapes instead of one per frame (the answer to the
   reference's unbounded canvas growth, SURVEY.md §5).
@@ -13,7 +13,7 @@ TPU-native specifics:
   feature coordinates shifted — a rolling window with O(1) memory.
 - Per frame: one fused registration program + one 16-float readback, then
   composite+blend on device. The frame cadence is bounded by SIFT + one
-  RPC round trip.
+  host round trip.
 """
 from __future__ import annotations
 

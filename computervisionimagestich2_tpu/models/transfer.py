@@ -4,7 +4,7 @@ Equivalent of class transfer (/root/reference/transfer.cpp): RGB -> LMS ->
 log10 -> l-alpha-beta, per-channel mean/std matched to a template image,
 then back. The reference parallelizes rows over 16 Win32 threads
 (transfer.cpp:45-69); here the whole thing is one fused elementwise kernel
-plus two global mean/var reductions on the VPU.
+plus two global mean/var reductions.
 
 Present in the public API even though the reference's call sites are
 commented out (ImageProcess.cpp:180-182) — it is part of the capability

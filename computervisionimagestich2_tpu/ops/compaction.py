@@ -1,20 +1,18 @@
 """Stream compaction: indices of set bits of a mask, in scan order, into a
 static-capacity buffer.
 
-TPU-native replacement for ``jnp.nonzero(size=...)``. XLA lowers nonzero to a
-full-domain cumsum + scatter; the scatter serializes on TPU (~9 ns/element —
-30 ms for a 3.1 M-pixel octave mask, measured on v5e). This formulation is
-scatter-free on the large domain:
+Replacement for ``jnp.nonzero(size=...)``. XLA lowers nonzero to a
+full-domain cumsum + scatter; this formulation is scatter-free on the large
+domain:
 
   1. reshape the mask to [blocks, 128] lanes;
   2. per-block compaction by an ascending sort of ``where(mask, lane, 128)``
-     — a bitonic row sort, vectorized across blocks on the VPU;
+     — a bitonic row sort, vectorized across blocks;
   3. flatten the per-block lists with a searchsorted over the exclusive
      block-count prefix sum (log-depth gathers) + one 2-D gather.
 
-Exactly matches nonzero's output (same scan order, same zero fill) at ~5x
-lower latency on the octave-scale masks of the SIFT detector; the win shrinks
-with domain size, but it is never slower than nonzero's scatter.
+Exactly matches nonzero's output (same scan order, same zero fill). Whether
+it beats nonzero's scatter on the GPU is not measured yet.
 
 The reference's analog is the dynamic keypoint append buffer
 (/root/reference/vl/sift.c:580-590); SURVEY.md §7 "dynamic shape laundering"
@@ -55,11 +53,10 @@ def compact_indices(mask: jnp.ndarray, capacity: int):
 
     j = jnp.arange(capacity, dtype=jnp.int32)
     # blk[j] = searchsorted(csum, j, "right") = #{b : csum[b] <= j}. The
-    # direct searchsorted costs capacity x log2(nb) POINT GATHERS (~9 ns
-    # each: 3.8 ms at 1080p's capacity=32768, nb=13.7k — measured); as a
-    # histogram of csum values + cumsum it is ONE nb-sized scatter-add
-    # (~0.2 ms). For small capacities the gather tail is cheaper than the
-    # nb-scatter, so pick by the static sizes.
+    # direct searchsorted costs capacity x log2(nb) point gathers; as a
+    # histogram of csum values + cumsum it is ONE nb-sized scatter-add.
+    # For small capacities the gather tail is cheaper than the nb-scatter,
+    # so pick by the static sizes.
     if capacity * 14 > nb:
         hist = jnp.zeros((capacity + 1,), jnp.int32)
         hist = hist.at[jnp.clip(csum, 0, capacity)].add(1, mode="drop")

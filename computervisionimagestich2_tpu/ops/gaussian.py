@@ -1,6 +1,6 @@
 """Separable Gaussian smoothing.
 
-TPU-native replacement for VLFeat's column convolution pair
+Replacement for VLFeat's column convolution pair
 (_vl_sift_smooth -> vl_imconvcol_vf x2, /root/reference/vl/sift.c:115-159,
 /root/reference/vl/imopv.c) and for CImg's recursive blur used by the blend
 pyramid (CImg.h get_blur -> vanvliet; approximated here by an equivalent FIR
@@ -10,10 +10,10 @@ The filter taps follow VLFeat exactly (vl/sift.c:124-141):
     W = max(ceil(4*sigma), 1); taps[j] = exp(-0.5 * ((j-W)/sigma)^2), normalized.
 Padding is by continuity (edge replication), matching VL_PAD_BY_CONTINUITY.
 
-Implementation: the 1-D convolutions are expressed as jax.lax
-conv_general_dilated over the rows/columns; XLA tiles them onto the VPU/MXU
-and fuses the surrounding elementwise work. Inputs are [H, W] or [N, H, W]
-float32 (a batch of scale-space levels is one array).
+Implementation: the 1-D convolutions are static shift-and-add passes over
+the rows/columns that XLA fuses with the surrounding elementwise work.
+Inputs are [H, W] or [N, H, W] float32 (a batch of scale-space levels is one
+array).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def gauss_taps(sigma: float) -> np.ndarray:
@@ -39,10 +41,9 @@ def _conv1d_lastdim(x: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
 
     x: [..., L]. taps: [K] (symmetric). Returns same shape.
 
-    Implemented as a static shift-and-add over the taps (K fused VPU
-    multiply-adds on full-width slices). An actual lax.conv with C_in=1
-    lowers to catastrophically slow code on TPU (measured ~200x slower at
-    panorama-canvas widths), and K is small (9..39).
+    Implemented as a static shift-and-add over the taps (K fused
+    multiply-adds on full-width slices); K is small (9..39). Whether a
+    lax.conv with C_in=1 is faster on the GPU is not measured.
     """
     return _conv1d_axis(x, taps, -1)
 
@@ -50,9 +51,8 @@ def _conv1d_lastdim(x: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
 def _conv1d_axis(x: jnp.ndarray, taps: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Correlate along ``axis`` with edge-replicate padding — the same
     shift-and-add, sliced along the requested axis. The H pass runs as
-    sublane-shifted slices directly: the previous swapaxes(-1, -2) round
-    trip was two full relayouts of the canvas per blur (2.78 ms for the
-    level-0 blend blur at 1160x1458x7 — most of the blend's cost)."""
+    row-shifted slices directly instead of a swapaxes(-1, -2) round trip,
+    which would copy the canvas twice per blur."""
     taps = taps.astype(x.dtype)  # keep reduced-precision inputs reduced
     k = taps.shape[0]
     r = (k - 1) // 2
@@ -79,7 +79,7 @@ def gaussian_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
     """
     taps = jnp.asarray(gauss_taps(sigma))
     out = _conv1d_axis(img, taps, -1)                # along W (x), lane shifts
-    return _conv1d_axis(out, taps, -2)               # along H (y), sublane shifts
+    return _conv1d_axis(out, taps, -2)               # along H (y), row shifts
 
 
 # ------------------------------------------------------- Van Vliet (CImg)
@@ -179,14 +179,19 @@ def _affine_scan_batched(x_terms: jnp.ndarray, a_mat: jnp.ndarray,
     n = x_terms.shape[-1]
     zeros = jnp.zeros_like(x_terms)
     bs = jnp.stack([x_terms, zeros, zeros], axis=-1)          # [..., N, 3]
-    b0 = bs[..., 0, :] + jnp.einsum("ij,...j->...i", a_mat, s_init)
+    # the scan composes 3x3 affine maps; HIGHEST keeps them f32 on the
+    # GPU (TF32 would break the Van Vliet filter's parity with CImg)
+    b0 = bs[..., 0, :] + jnp.einsum("ij,...j->...i", a_mat, s_init,
+                                    precision=_HIGHEST)
     bs = bs.at[..., 0, :].set(b0)
     a_all = jnp.broadcast_to(a_mat, x_terms.shape[:-1] + (n, 3, 3))
 
     def combine(l, r):
         a1, b1 = l
         a2, b2 = r
-        return (a2 @ a1, jnp.einsum("...ij,...j->...i", a2, b1) + b2)
+        return (jnp.matmul(a2, a1, precision=_HIGHEST),
+                jnp.einsum("...ij,...j->...i", a2, b1,
+                           precision=_HIGHEST) + b2)
 
     _, ss = jax.lax.associative_scan(combine, (a_all, bs), axis=-3)
     return ss[..., 0]

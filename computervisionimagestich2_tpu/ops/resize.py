@@ -12,9 +12,9 @@ actually dispatches per-dimension:
   out[x] = lerp(src[floor(pos)], src[floor(pos)+1], frac(pos)).
 
 Both are linear maps, so we precompute (host-side, per static shape pair) a
-sparse row-stochastic weight matrix and apply it as a dense matmul on the
-MXU — the TPU-native form of CImg's per-pixel pointer walk. The matrices are
-tiny (pyramid dims), and XLA folds the pair of matmuls with neighbors.
+sparse row-stochastic weight matrix and apply it as a dense matmul — the
+vectorized form of CImg's per-pixel pointer walk. The matrices are tiny
+(pyramid dims), and XLA folds the pair of matmuls with neighbors.
 
 VLFeat's scale-space decimation (copy_and_downsample, vl/sift.c:178-194) is
 plain stride-2 point sampling and is implemented directly.
@@ -136,8 +136,7 @@ def _blur_shrink_coefs(n_src: int, n_dst: int, sigma: float):
     and out[t] = sum_e bw[t, e] * blur[idx0[t] + e] (the overlap-weighted
     moving average, CImg.h:29539-29556). Mathematically identical to
     blur-then-shrink (float reassociation only), at ~half the multiply-adds
-    and with no blurred intermediate materialized — the blend pyramid's
-    downsweep is where most of its time went (RESULTS round 4).
+    and with no blurred intermediate materialized.
 
     Returns (r, C [n_dst, D]) with slice offsets d in [0, D)."""
     from .gaussian import gauss_taps
@@ -168,9 +167,8 @@ def _blur_shrink_axis(x: jnp.ndarray, n_dst: int, sigma: float,
     the moving-average weights are a uniform [.5, .5], so every composite
     row is identical) — then each term is a SCALAR-weighted strided slice,
     which XLA fuses into one pass exactly like the blur's shift-and-add.
-    The per-position column form (odd n_src) defeated that fusion and ran
-    ~10x slower than the unfused pair (scripts/bench_r4_probe6.py round 4:
-    blend 49.5 ms vs 5), so odd axes fall back to blur-then-shrink along
+    The per-position column form (odd n_src) defeats that fusion, so odd
+    axes fall back to blur-then-shrink along
     this axis (axis-independent linear maps — mixing fused/unfused per
     axis still computes the same values)."""
     from .gaussian import _conv1d_axis, gauss_taps
@@ -189,8 +187,7 @@ def _blur_shrink_axis(x: jnp.ndarray, n_dst: int, sigma: float,
     taps = c[0]
     d_len = len(taps)
     # PHASE DECOMPOSITION: out[t] = sum_d taps[d] * xp[2t + d] as one
-    # strided slice PER TAP ran ~10x slower than the unfused pair (every
-    # stride-2 slice is its own relayout pass on TPU). Splitting xp into
+    # strided slice PER TAP costs one strided pass per tap. Splitting xp into
     # even/odd phases ONCE (two strided slices) turns every tap term into
     # a CONTIGUOUS slice of a phase array — the same shift-and-add
     # structure XLA fuses for the blur — at half the blur's output size:
@@ -262,11 +259,9 @@ def vlfeat_downsample(img: jnp.ndarray, d: int = 1) -> jnp.ndarray:
     img: [..., H, W]. Output dims: ceil over the reference's loop bounds —
     rows step ``y += d`` over [0, H), cols over [0, W-(d-1)).
 
-    A strided slice on the minor (lane) axis is a full cross-lane relayout
-    on TPU (~2.2 ms per 1080p octave handoff — measured, dominated the
-    whole pyramid build). Rows decimate by a cheap sublane-strided slice;
-    columns decimate by reshaping the lane axis into [n_out, step] blocks
-    and taking element 0 — bit-identical, ~13x faster."""
+    Rows decimate by a strided slice; columns decimate by reshaping the
+    minor axis into [n_out, step] blocks and taking element 0 —
+    bit-identical to a strided slice of the minor axis."""
     step = 1 << d
     rows = img[..., ::step, :]
     w = img.shape[-1]

@@ -1,7 +1,7 @@
 """SIFT device kernels: DoG extrema, sub-pixel refinement, polar gradients,
 orientation assignment, descriptor computation.
 
-TPU-native re-design of VLFeat's per-keypoint scalar loops
+Vectorized re-design of VLFeat's per-keypoint scalar loops
 (/root/reference/vl/sift.c):
 
 - ``extrema_mask``       <- the 26-neighbor scan (vl_sift_detect, sift.c:539-603),
@@ -14,11 +14,15 @@ TPU-native re-design of VLFeat's per-keypoint scalar loops
   vl_fast_sqrt_f/vl_fast_atan2_f (parity is count/coord tolerance, SURVEY §7).
 - ``orientation_histograms`` <- vl_sift_calc_keypoint_orientations
   (sift.c:904-1036): per-keypoint window gather + bilinear 36-bin histogram
-  (VL_SIFT_BILINEAR_ORIENTATIONS is on, sift.c:12) as a one-hot MXU matmul,
+  (VL_SIFT_BILINEAR_ORIENTATIONS is on, sift.c:12) as a one-hot matmul,
   6 rounds of circular [1,1,1]/3 smoothing, peak picking.
 - ``descriptors``        <- vl_sift_calc_keypoint_descriptor (sift.c:1268-1438):
   the trilinear scatter into 4x4x8 bins is refactored into a separable
-  tensor contraction (two matmuls per keypoint) — scatter-free, MXU-shaped.
+  tensor contraction (two matmuls per keypoint) — scatter-free.
+
+On a GPU the orientation and descriptor stages run as Pallas kernels
+instead (ops/sift_triton.py, models/sift.py::kernel_route); these XLA forms
+are their reference and the route everywhere else.
 
 All window sizes are static upper bounds derived from the scale-space
 geometry; per-keypoint dynamic extents are enforced with masks.
@@ -103,7 +107,7 @@ def _solve3_gauss(a_mat: jnp.ndarray, b_vec: jnp.ndarray):
     elimination bails when a pivot < 1e-10 — the determinant guard is the
     vectorized equivalent, and the |b|<1.5 acceptance gates filter the same
     borderline points). Closed form keeps the per-candidate solve a handful
-    of VPU flops instead of a batched LU."""
+    of elementwise flops instead of a batched LU."""
     a, b, c = a_mat[0, 0], a_mat[0, 1], a_mat[0, 2]
     d, e, f = a_mat[1, 0], a_mat[1, 1], a_mat[1, 2]
     g, h, i = a_mat[2, 0], a_mat[2, 1], a_mat[2, 2]
@@ -127,9 +131,9 @@ def _refine_fields(dog: jnp.ndarray, w: int, h: int, peak_thresh: float,
                    sigma0: float, n_levels: int):
     """Dense refinement fields over the whole DoG volume.
 
-    TPU re-design of the per-keypoint Newton solve (sift.c:612-757): the
+    Dense re-design of the per-keypoint Newton solve (sift.c:612-757): the
     gradient/Hessian stencils, the 3x3 solve, the +-1 relocation decision,
-    and all acceptance quantities are computed *densely* as VPU stencil math
+    and all acceptance quantities are computed *densely* as stencil math
     (a few hundred flops/pixel — cheaper than per-candidate gathers of 27
     neighbors). The per-candidate loop then only chases positions through
     the precomputed step fields. Values on the 1-pixel border and the outer
@@ -140,12 +144,10 @@ def _refine_fields(dog: jnp.ndarray, w: int, h: int, peak_thresh: float,
     # dog level s+1), and the position chase never moves in s NOR onto the
     # 1-px spatial border (its steps are bounds-clamped to [1, dim-2]) —
     # so every field is computed on the INTERIOR domain
-    # [s_out, H-2, W-2] with pure static slices of the dog stack. The
-    # round-2 form used jnp.pad + slice per stencil shift; each of the
-    # ~12 pads materialized a full [S, H, W] copy that broke XLA's fusion
-    # of the stencil chain (refine measured 2.5 ms in-context at
-    # 1440x1080, ~5x its flop+HBM roofline — probe round 5). Slices of
-    # one common array fuse freely.
+    # [s_out, H-2, W-2] with pure static slices of the dog stack: a
+    # jnp.pad + slice per stencil shift would materialize ~12 full
+    # [S, H, W] copies that break XLA's fusion of the stencil chain.
+    # Slices of one common array fuse freely.
     d_lvl, hh, ww = dog.shape
 
     def sl(ds, dy, dx):
@@ -196,9 +198,8 @@ def _refine_fields(dog: jnp.ndarray, w: int, h: int, peak_thresh: float,
               + jnp.where((b0 < -0.6) & (xs > 1), -1, 0)).astype(jnp.int32)
     step_y = (jnp.where((b1 > 0.6) & (ys < h - 2), 1, 0)
               + jnp.where((b1 < -0.6) & (ys > 1), -1, 0)).astype(jnp.int32)
-    # both +-1 steps packed in one field: point gathers cost ~9 ns/element
-    # on TPU, and the chase is gather-bound — one code gather per step
-    # instead of two halves its cost
+    # both +-1 steps packed in one field: the chase is gather-bound, and
+    # one code gather per step replaces two
     step_code = (step_y + 1) * 3 + (step_x + 1)
 
     val = c + 0.5 * (dx_ * b0 + dy_ * b1 + ds_ * b2)
@@ -264,11 +265,9 @@ def refine_keypoints(dog: jnp.ndarray, coords: jnp.ndarray, valid: jnp.ndarray,
 
     x, y = jax.lax.fori_loop(0, 5, chase, (x, y))
     flat = base + (y - 1) * ww2 + (x - 1)
-    # five per-field point gathers, NOT one packed [., 5] row gather: the
-    # round-2 packed form saved 4 gathers but the stack(axis=-1) into
-    # minor-dim-5 layout forced a relayout of all five (8,128)-tiled
-    # fields AND anchored them as materialized arrays (blocking the
-    # stencil-chain fusion the interior-slice form above enables)
+    # five per-field point gathers, NOT one packed [., 5] row gather: a
+    # stack(axis=-1) of the five fields would materialize them (blocking
+    # the stencil-chain fusion the interior-slice form above enables)
     ok = okf.reshape(-1)[flat] & valid
     lvl = (s_dog + s_min).astype(jnp.int32)
     return (ok, xf.reshape(-1)[flat], yf.reshape(-1)[flat],
@@ -288,8 +287,7 @@ def polar_gradient(levels: jnp.ndarray) -> jnp.ndarray:
     l, h, w = src.shape
     # edge-replicated +-1 shifts; central diff inside, and the border
     # columns/rows get doubled (edge-pad makes 0.5*(x1-x0) = half the
-    # one-sided difference). Pad+mask instead of lane-axis concatenation —
-    # concat along the minor (lane) dim forces vector relayouts on TPU.
+    # one-sided difference).
     xp = jnp.pad(src[:, :, 1:], ((0, 0), (0, 0), (0, 1)), mode="edge")
     xm = jnp.pad(src[:, :, :-1], ((0, 0), (0, 0), (1, 0)), mode="edge")
     yp = jnp.pad(src[:, 1:, :], ((0, 0), (0, 1), (0, 0)), mode="edge")
@@ -302,13 +300,8 @@ def polar_gradient(levels: jnp.ndarray) -> jnp.ndarray:
     gy = fy * (yp - ym)
     mod = jnp.sqrt(gx * gx + gy * gy)
     ang = jnp.mod(jnp.arctan2(gy, gx) + TWO_PI, TWO_PI)
-    # plane-MAJOR layout [L, 2, H, W]: the walk dispatch slices one plane
-    # per bucket DMA pad — with the old minor-dim-2 interleave
-    # ([L, H, W, 2]) every grad[l, :, :, p] slice was a full-plane
-    # relayout that XLA re-fused into each of the ~12 per-octave bucket
-    # consumers (measured ~3-4 ms/image hidden in the walk stages at
-    # 1440x1080, round 5 — the interleave was the single largest SIFT
-    # cost after the walks themselves)
+    # plane-major layout [L, 2, H, W]: the GPU kernels read one contiguous
+    # [H, W] plane each (ops/sift_triton.py)
     return jnp.stack([mod, ang], axis=1)
 
 
@@ -407,11 +400,10 @@ def _peak_operators(n_bins: int):
     """Precomposed circulant operators for orientation_peaks: the 6
     rounds of circular [1,1,1]/3 smoothing are one linear map C6; the
     +-1 circular shifts of the smoothed histogram compose into C6 @ R.
-    Applied as [N, n_bins] @ [n_bins, n_bins] MXU matmuls — the iterated
-    jnp.roll form did 14 lane rotations on a 36-wide minor axis, each a
-    lane-unaligned relayout (measured 0.85 ms per level's [4369, 36]
-    batch at 1440x1080, probe sift-base round 5; the matmul form is the
-    same linear operator evaluated in a different f32 summation order)."""
+    Applied as [N, n_bins] @ [n_bins, n_bins] matmuls at HIGHEST
+    precision instead of 14 iterated jnp.roll passes over the 36-wide
+    minor axis (the same linear operator evaluated in a different f32
+    summation order)."""
     import numpy as np
 
     if n_bins in _PEAK_OPS:

@@ -6,17 +6,29 @@ targets) — 4x4 LU for a minimal sample (getHomographyMat,
 overdetermined least-squares refit on the inliers (getInlinerHomography,
 ImageProcess.cpp:500-529).
 
-TPU-native: solves are batched/vmapped over RANSAC hypotheses. Because the
-design matrix contains x*y terms (values up to ~1e6 at canvas scale), we
-normalize coordinates (shift/scale) before solving and map the coefficients
-back exactly — keeping fp32 well-conditioned on the MXU instead of falling
-back to f64 (which TPUs emulate slowly). The bilinear model family is closed
-under this reparameterization, so the result is mathematically identical.
+Solves are batched/vmapped over RANSAC hypotheses. Because the design
+matrix contains x*y terms (values up to ~1e6 at canvas scale), we normalize
+coordinates (shift/scale) before solving and map the coefficients back
+exactly — keeping f32 well-conditioned instead of falling back to f64. The
+bilinear model family is closed under this reparameterization, so the result
+is mathematically identical.
+
+Every normal-equation product runs at HIGHEST precision: a GPU would
+otherwise round f32 matmul operands to TF32 (10 mantissa bits), which the
+refit's sub-0.05 px parity with the reference's f64 solve does not survive
+(tests/test_match_ransac.py::test_refit_parity_needs_full_f32).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """a @ b in full f32 (no TF32 rounding of the operands)."""
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 def _design_rows(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
@@ -49,7 +61,7 @@ def _denormalize(coeffs_n: jnp.ndarray, cx, cy, s) -> jnp.ndarray:
 def _solve4_spd(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Unrolled 4x4 Cholesky solve for the SPD normal-equation systems.
 
-    A handful of scalar VPU flops per system — vmaps over thousands of
+    A handful of scalar flops per system — vmaps over thousands of
     RANSAC hypotheses without falling back to a batched LU. a: [4, 4] SPD,
     b: [4, K]. Returns x with a @ x = b.
     """
@@ -129,8 +141,8 @@ def solve_warp(src_xy: jnp.ndarray, dst_xy: jnp.ndarray,
     yn = (y - cy) / s
     a_mat = _design_rows(xn, yn)                      # [N, 4]
     aw = a_mat * weights[:, None]
-    ata = aw.T @ a_mat                                 # [4, 4]
-    atb = aw.T @ dst_c                                 # [4, 2]
+    ata = _mm(aw.T, a_mat)                             # [4, 4]
+    atb = _mm(aw.T, dst_c)                             # [4, 2]
     # Tikhonov epsilon keeps degenerate samples (duplicate points) finite;
     # RANSAC scoring discards them, mirroring the reference where CImg's
     # solver returns garbage for singular systems.
@@ -139,8 +151,8 @@ def solve_warp(src_xy: jnp.ndarray, dst_xy: jnp.ndarray,
     # one step of iterative refinement against the original residual
     # (normal equations square the condition number; one correction step
     # reaches f32 roundoff at these conditioning levels)
-    r = dst_c - a_mat @ sol                            # [N, 2]
-    sol = sol + _solve4_spd(ata, aw.T @ r)
+    r = dst_c - _mm(a_mat, sol)                        # [N, 2]
+    sol = sol + _solve4_spd(ata, _mm(aw.T, r))
     sol = sol.at[3, :].add(duv)                        # un-center targets
     coeffs_n = sol.T                                   # [2, 4]
     coeffs = _denormalize(coeffs_n, cx, cy, s)         # [2, 4]
@@ -155,7 +167,7 @@ def _solve_spd(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Unrolled Cholesky solve for small SPD systems (any static n).
 
     Generated loop is fully unrolled at trace time — vmaps over RANSAC
-    hypotheses as straight-line VPU code (batched LU is slow on TPU).
+    hypotheses as straight-line elementwise code instead of a batched LU.
     a: [n, n] SPD, b: [n, K].
     """
     n = a.shape[0]
@@ -217,13 +229,13 @@ def solve_projective(src_xy: jnp.ndarray, dst_xy: jnp.ndarray,
     rhs = jnp.concatenate([un, vn], axis=0)                 # [2N]
     w2 = jnp.concatenate([weights, weights], axis=0)
     aw = a_mat * w2[:, None]
-    ata = aw.T @ a_mat + 1e-6 * jnp.eye(8, dtype=a_mat.dtype)
-    atb = aw.T @ rhs
+    ata = _mm(aw.T, a_mat) + 1e-6 * jnp.eye(8, dtype=a_mat.dtype)
+    atb = _mm(aw.T, rhs)
     hn_col = _solve_spd(ata, atb[:, None])                  # [8, 1]
     # iterative refinement vs the original residual (see solve_warp)
     for _ in range(2):
-        r = rhs[:, None] - a_mat @ hn_col
-        hn_col = hn_col + _solve_spd(ata, aw.T @ r)
+        r = rhs[:, None] - _mm(a_mat, hn_col)
+        hn_col = hn_col + _solve_spd(ata, _mm(aw.T, r))
     hn = hn_col[:, 0]                                       # [8]
 
     # denormalize: H = T_dst^-1 @ Hn @ T_src, with
@@ -232,6 +244,6 @@ def solve_projective(src_xy: jnp.ndarray, dst_xy: jnp.ndarray,
     t_src = jnp.array([[1 / s, 0, -cx / s], [0, 1 / s, -cy / s], [0, 0, 1]],
                       dtype=hn.dtype)
     t_dst_inv = jnp.array([[t, 0, cu], [0, t, cv], [0, 0, 1]], dtype=hn.dtype)
-    h_full = t_dst_inv @ h_n @ t_src
+    h_full = _mm(_mm(t_dst_inv, h_n), t_src)
     h_full = h_full / h_full[2, 2]
     return h_full.reshape(9)

@@ -1,6 +1,6 @@
 """Warp / sampling kernels.
 
-TPU-native replacements for the reference's per-pixel scalar loops:
+Replacements for the reference's per-pixel scalar loops:
 
 - ``bilinear_sample``    <- Projection::bilinearInterpolation
                            (/root/reference/Projection.cpp:3-18)
@@ -12,8 +12,8 @@ TPU-native replacements for the reference's per-pixel scalar loops:
 
 All functions are pure, jittable, and operate on dense [H, W, C] float32 arrays
 (pixel values 0..255). Instead of the reference's dst-pixel scalar loops
-(cimg_forXY), every kernel is a fused elementwise-compute + gather that XLA
-lays out on the VPU; there is no data-dependent control flow.
+(cimg_forXY), every kernel is a fused elementwise-compute + gather; there
+is no data-dependent control flow.
 
 The warp model is the reference's 8-coefficient *bilinear* warp, not a
 projective homography (see ImageProcess.h:58-73 — coefficients packed into a
@@ -81,13 +81,14 @@ def _cyl_portrait_banded(img: jnp.ndarray, angle_deg: float) -> jnp.ndarray:
 
     The backward map is separable: the source column depends only on the
     output column (x tables are trace-time constants), and the source row is
-    linear in the output row with a per-column slope. Point gathers run at
-    ~9 ns/element on TPU; this formulation replaces them with
-    (a) a 0/1-weighted column-selection matmul on the MXU (exact — unit
-    weights survive the bf16x3 decomposition bit-exactly), and
+    linear in the output row with a per-column slope. This formulation
+    replaces the point gathers with
+    (a) a 0/1-weighted column-selection matmul (exact at HIGHEST
+    precision — unit weights select one f32 value), and
     (b) a statically-banded row lerp: per 128-row chunk, the integer row
     offsets span a small range known at trace time, so each candidate is a
-    static slice + masked FMA. ~10x faster than the gather form at 1080p.
+    static slice + masked FMA. Whether it beats the plain gather
+    (_cylindrical_project_gather) on the GPU is not measured yet.
     """
     h, w = img.shape[0], img.shape[1]
     half_w = w // 2
@@ -334,10 +335,8 @@ def shift_image(src: jnp.ndarray, offset_x: jnp.ndarray, offset_y: jnp.ndarray,
         out = jnp.zeros(out_shape + (src.shape[2],), dtype=src.dtype)
     h, w = out.shape[0], out.shape[1]
     src_h, src_w = src.shape[0], src.shape[1]
-    # A translation is a pad + ONE dynamic_slice — the obvious 2D point
-    # gather (src[ys + oy, xs + ox]) runs at ~9 ns/element on TPU (14.8 ms
-    # measured on a 4-image 1080p canvas, 370x its HBM roofline; it
-    # dominated the fused per-edge composite). Padding by h/w on BOTH sides
+    # A translation is a pad + ONE dynamic_slice instead of the obvious 2D
+    # point gather (src[ys + oy, xs + ox]). Padding by h/w on BOTH sides
     # keeps the slice start in-range for every offset with any overlap
     # (offset in [-h, src_h] x [-w, src_w]); outside that range
     # dynamic_slice clamps, but then EVERY output pixel fails the validity
@@ -435,32 +434,15 @@ def banded_warp_params(coeffs, out_shape, offset_x: float, offset_y: float,
 
 
 def plan_edge_warp(coeffs, out_shape, offset_x: float, offset_y: float,
-                   src_shape, model: str = "bilinear", tile: int = 128,
-                   allow_onehot: bool = True):
-    """Host planner choosing the fastest valid warp kernel for one edge.
-
-    Returns ("banded", dy, dx) when the shift-select kernel's band is small
-    (its cost grows as (dy+1)*(dx+1) masked adds per tile), otherwise
-    ("onehot", starts, winr, winc, d) for the one-hot-matmul kernel
-    (ops.pallas_warp — handles arbitrary bilinear scale; real panorama
-    edges carry x-scales far from 1 at canvas distance, which pushed the
-    band requirement to ~60 px and silently sent EVERY 1080p composite to
-    the 9 ns/px gather, RESULTS round 3), or None -> gather fallback.
-    ``allow_onehot``: pass False off-TPU (the kernel needs Mosaic)."""
+                   src_shape, model: str = "bilinear", tile: int = 128):
+    """Host planner choosing the warp for one edge: ("banded", dy, dx)
+    when the shift-select kernel's band fits (banded_warp_params), else
+    None -> the point-gather warp_image."""
     bands = banded_warp_params(coeffs, out_shape, offset_x, offset_y,
                                src_shape, model, tile)
-    if bands is not None and (bands[0] + 1) * (bands[1] + 1) <= 25:
-        return ("banded", bands[0], bands[1])
-    if allow_onehot:
-        from .pallas_warp import onehot_warp_params
-
-        oh = onehot_warp_params(coeffs, out_shape, offset_x, offset_y,
-                                src_shape, model)
-        if oh is not None:
-            return ("onehot",) + oh
-    if bands is not None:
-        return ("banded", bands[0], bands[1])
-    return None
+    if bands is None:
+        return None
+    return ("banded", bands[0], bands[1])
 
 
 @partial(jax.jit, static_argnames=("out_shape", "dy", "dx", "tile",
@@ -471,19 +453,19 @@ def warp_image_banded(src: jnp.ndarray, coeffs: jnp.ndarray,
                       tile: int = 128, model: str = "bilinear") -> jnp.ndarray:
     """Gather-free :func:`warp_image` for near-translation bilinear warps.
 
-    Point gathers run at ~9 ns/element on TPU. For panorama edges the warp
-    deviates from a translation by only a few pixels per 128x128 tile, so
-    each output tile reads one dynamically-offset [T+dy, T+dx] source
-    window and reduces over (dy+1)*(dx+1) statically-shifted masked
-    copies — pure VPU selects, ~50x less time than the gather. Host must
-    validate the band via :func:`banded_warp_params`. Semantics are
-    identical to warp_image (trunc-to-int nearest read, zero canvas).
+    For panorama edges the warp deviates from a translation by only a few
+    pixels per 128x128 tile, so each output tile reads one
+    dynamically-offset [T+dy, T+dx] source window and reduces over
+    (dy+1)*(dx+1) statically-shifted masked copies — elementwise selects
+    instead of point gathers. Host must validate the band via
+    :func:`banded_warp_params`. Semantics are identical to warp_image
+    (trunc-to-int nearest read, zero canvas).
     """
     h_out, w_out = out_shape
     src_h, src_w, nch = src.shape
     t = tile
     pad = t + max(dy, dx)
-    # channels-first: [C, H, W] keeps the tile minor dims VPU-shaped
+    # channels-first: [C, H, W] keeps the tile's two image axes minor
     src_cf = jnp.moveaxis(src, -1, 0)
     src_pad = jnp.pad(src_cf, ((0, 0), (pad, pad), (pad, pad)))
     nti = -(-h_out // t)

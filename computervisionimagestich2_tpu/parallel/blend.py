@@ -1,4 +1,4 @@
-"""Row-sharded multi-band blending — canvas compositing over ICI.
+"""Row-sharded multi-band blending — canvas compositing across devices.
 
 The reference's unbounded dimension is the growing panorama canvas
 (blendTwoImages, /root/reference/ImageProcess.cpp:648-773; SURVEY.md §5
@@ -6,7 +6,7 @@ The reference's unbounded dimension is the growing panorama canvas
 models.blender.blend_two_images with the canvas ROWS sharded over a mesh
 axis: every device owns a horizontal stripe, and the only cross-device
 traffic is the filter/resize halo exchanged with row-neighbors via
-``ppermute`` — the classic ICI halo pattern, sized in rows, never the
+``ppermute`` — the classic halo pattern, sized in rows, never the
 full canvas.
 
 Per pyramid level the H-direction ops need neighbor rows:
@@ -199,7 +199,7 @@ def sharded_composite(src_img: jnp.ndarray, result_img: jnp.ndarray,
                       backward_coeffs: jnp.ndarray, min_x: float,
                       min_y: float, canvas_hw: tuple[int, int], mesh: Mesh,
                       axis_name: str = "sp", model: str = "bilinear"):
-    """Row-sharded stitch-edge composite (compose.composite over ICI).
+    """Row-sharded stitch-edge composite (compose.composite on a mesh).
 
     Returns (a, b) as GLOBAL [H, W, 3] arrays row-sharded over
     ``mesh[axis_name]``: a = src_img inverse-warped through
@@ -238,7 +238,7 @@ def sharded_composite_and_blend(src_img: jnp.ndarray,
                                 content_h: jnp.ndarray | int | None = None,
                                 dtype: str = "f32") -> jnp.ndarray:
     """One full stitch edge — composite + multi-band blend — with canvas
-    rows sharded over ICI end-to-end: warp and offset-copy stripes are
+    rows sharded end-to-end: warp and offset-copy stripes are
     halo-free backward maps (sharded_composite), the pyramid blend
     exchanges only blur/resize halos via ppermute
     (sharded_blend_two_images). Matches the single-device
@@ -264,7 +264,8 @@ def sharded_blend_two_images(a: jnp.ndarray, b: jnp.ndarray, mesh: Mesh,
     (models.blender.blend_stacked). Output matches the single-device blend
     to f32 round-off. Raises if H doesn't admit even sharding.
     ``dtype="bf16"`` mirrors BlendConfig.dtype: the stripes, halos, and the
-    gathered tail all run in bfloat16 (half the HBM *and* ICI traffic)."""
+    gathered tail all run in bfloat16 (half the memory *and* interconnect
+    traffic)."""
     h, w = int(a.shape[0]), int(a.shape[1])
     n = mesh.shape[axis_name]
     from ..models.blender import resolve_dtype

@@ -1,15 +1,17 @@
 """Device-mesh helpers.
 
 The reference has no multi-device story (SURVEY.md §2.3); its parallelism is
-std::thread + SIMD. The TPU-native equivalents are:
+std::thread + SIMD. The device equivalents are:
 
 - data parallelism over independent panoramas/pairs (the batch axis) —
   sharded over the ``data`` mesh axis, no cross-image communication;
 - spatial parallelism over canvas rows for large-canvas kernels — sharded
-  over the ``sp`` axis with ppermute halo exchanges over ICI.
+  over the ``sp`` axis with ppermute halo exchanges.
 
-DCN is irrelevant at this workload's scale, but everything below works on any
-jax.sharding.Mesh, so a multi-host mesh composes for free.
+The mesh is a plain reshape of the device list: the cards of one host reach
+each other at the same rate (NVLink, all to all), so no layout is assumed.
+Everything below works on any jax.sharding.Mesh, so a multi-host mesh
+composes for free.
 """
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
-"""Spatially-sharded image kernels (canvas/row parallelism over ICI).
+"""Spatially-sharded image kernels (canvas/row parallelism across devices).
 
 The reference's unbounded dimension is the growing canvas
 (ImageProcess.cpp:215-219, SURVEY.md §5 "long-context analog"). For canvases
-that outgrow one chip's comfort zone, row-sharded kernels keep every chip
-working on its stripe and exchange only the filter halo with its neighbors
-via ppermute — the classic ICI halo-exchange pattern.
+that outgrow one device's comfort zone, row-sharded kernels keep every
+device working on its stripe and exchange only the filter halo with its
+neighbors via ppermute — the classic halo-exchange pattern.
 """
 from __future__ import annotations
 

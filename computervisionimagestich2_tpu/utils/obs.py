@@ -8,7 +8,7 @@ display() calls (ImageProcess.cpp:183,233,391) plus one clock() print
   PANORAMA_TPU_LOG=1 or set_verbose(True));
 - ``StageTimer`` — wall-clock per stage, exposed on Stitcher.stage_times
   (reproduces the end-to-end seconds print via the CLI --timing flag);
-- ``trace``    — context manager around jax.profiler for TPU traces
+- ``trace``    — context manager around jax.profiler for device traces
   (PANORAMA_TPU_TRACE=/path enables).
 """
 from __future__ import annotations

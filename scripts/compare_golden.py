@@ -13,7 +13,7 @@ catastrophically truncate the panorama to ~822 px). The gates below are
 calibrated to that envelope (GOLDEN_ENVELOPE.md): our output must look like
 *another reference run*, which is the strictest achievable standard.
 
-Run on TPU:  python scripts/compare_golden.py
+Run (GPU or CPU):  python scripts/compare_golden.py
 """
 from __future__ import annotations
 
@@ -32,8 +32,10 @@ def main():
 
     from computervisionimagestich2_tpu.config import DEFAULT_CONFIG
     from computervisionimagestich2_tpu.models.stitcher import Stitcher
+    from computervisionimagestich2_tpu.utils.cache import enable_compile_cache
     from computervisionimagestich2_tpu.utils.io import load_image
 
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--hypotheses", type=int, default=0,
                     help="override RansacConfig.n_hypotheses (attribution "
@@ -42,8 +44,8 @@ def main():
                     help="override the RANSAC base seed (our own "
                          "draw-envelope studies; 0 = reference's 666666)")
     ap.add_argument("--parity", action="store_true",
-                    help="pin the reference-faithful algorithm pair "
-                         "(ADVICE r4): exact-L1 matching (no l2pre MXU "
+                    help="pin the reference-faithful algorithm pair: "
+                         "exact-L1 matching (no l2pre matmul "
                          "prefilter) AND lo_iters=0 (the reference's "
                          "refit-and-stop RANSAC, ImageProcess.cpp:500-529)"
                          " — the perf defaults intentionally diverge")

@@ -1,7 +1,7 @@
 /* vlfeat_dump: ground-truth oracle harness driving the ACTUAL VLFeat C
  * sources vendored in the reference tree (/root/reference/vl). Compiled by
  * scripts/build_vlfeat_dump.sh; used by scripts/parity_vlfeat.py to validate
- * the TPU rebuild against the real library instead of a self-written
+ * the JAX rebuild against the real library instead of a self-written
  * transcription (VERDICT round 1, "Missing #2").
  *
  * Modes:

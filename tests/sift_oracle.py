@@ -1,7 +1,7 @@
 """Scalar NumPy oracle for SIFT, transcribed from the semantics of
 /root/reference/vl/sift.c (same math as the JAX kernels, but written as the
 reference's per-pixel/per-keypoint loops). Used to validate the vectorized
-TPU kernels on small images. Uses exact exp/atan2/sqrt like the JAX build
+device kernels on small images. Uses exact exp/atan2/sqrt like the JAX build
 (the VLFeat fast_* approximations are a documented non-goal, SURVEY.md §7).
 """
 import math

@@ -1,7 +1,7 @@
 """CLI argument parsing and flag -> config threading (cli.py, the L5
 entry — SURVEY.md §2.1 "Entry point"). Pure parse/config tests: the
 stitching behind the CLI is covered by tests/test_integration.py and the
-TPU drive in .claude/skills/verify."""
+GPU run in chip_smoke.py."""
 import pytest
 
 from computervisionimagestich2_tpu import cli

@@ -85,10 +85,8 @@ def test_ransac_deterministic(rng):
 
 
 def test_l2pre_matches_exact_sets(rng):
-    """The MXU-prefiltered matcher (match.method='l2pre') must reproduce
-    the exact-L1 ratio-test decisions AND nearest indices (the probe that
-    motivated it measured identity at m=32 on the 1440x1080 bench inputs,
-    scripts/probe_l2_prefilter.py)."""
+    """The matmul-prefiltered matcher (match.method='l2pre') must reproduce
+    the exact-L1 ratio-test decisions AND nearest indices."""
     from computervisionimagestich2_tpu.ops import distance as D
 
     base = np.abs(rng.normal(size=(384, 128))).astype(np.float32)
@@ -97,8 +95,8 @@ def test_l2pre_matches_exact_sets(rng):
                * 0.01).astype(np.float32)
     qv = np.arange(256) < 200
     rv = np.arange(384) < 350
-    ex = D.ratio_match_bidir(q, base, qv, rv, 0.5, "l1", "off", "exact")
-    l2 = D.ratio_match_bidir(q, base, qv, rv, 0.5, "l1", "off", "l2pre", 32)
+    ex = D.ratio_match_bidir(q, base, qv, rv, 0.5, "l1", "exact")
+    l2 = D.ratio_match_bidir(q, base, qv, rv, 0.5, "l1", "l2pre", 32)
     np.testing.assert_array_equal(np.asarray(ex[0]), np.asarray(l2[0]))
     np.testing.assert_array_equal(np.asarray(ex[2]), np.asarray(l2[2]))
     okq = np.asarray(ex[0])
@@ -118,7 +116,7 @@ def test_l2pre_respects_validity(rng):
     r[8:72] = q
     rv = np.arange(128) < 8
     qv = np.ones(64, bool)
-    d1, d2, i1 = D.two_nearest(q, r, qv, rv, "l1", "off", "l2pre", 16)
+    d1, d2, i1 = D.two_nearest(q, r, qv, rv, "l1", "l2pre", 16)
     assert np.all(np.asarray(i1) < 8)
 
 
@@ -220,3 +218,47 @@ def test_validate_plan_rejects_degenerate_canvas():
     plan[1, 20] = np.nan
     with pytest.raises(ValueError, match="degenerate registration"):
         Stitcher._validate_plan(plan, (480, 640), 2)
+
+
+def test_refit_parity_needs_full_f32(rng, monkeypatch):
+    """The least-squares refit holds the 0.05 px parity tolerance of the
+    reference's f64 refit only with full-f32 products: rounding the
+    normal-equation operands to TF32 (10 mantissa bits, what a GPU does
+    to f32 matmuls at DEFAULT precision) breaks it. solve.py therefore
+    pins HIGHEST."""
+    from computervisionimagestich2_tpu.ops import solve, warp
+
+    def tf32(a):
+        bits = jax.lax.bitcast_convert_type(jnp.asarray(a, jnp.float32),
+                                            jnp.uint32)
+        return jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFFE000),
+                                            jnp.float32)
+
+    n = 400
+    src = rng.uniform(0, 1500, size=(n, 2))
+    true_c = np.array([0.93, -0.027, 2.4e-4, 214.0,
+                       3.2e-3, 1.0, -2.1e-6, 4.0])
+    x, y = src[:, 0], src[:, 1]
+    dst = np.stack([
+        true_c[0] * x + true_c[1] * y + true_c[2] * x * y + true_c[3],
+        true_c[4] * x + true_c[5] * y + true_c[6] * x * y + true_c[7],
+    ], axis=-1) + rng.normal(scale=1.0, size=(n, 2))
+    a_mat = np.stack([x, y, x * y, np.ones(n)], axis=-1)
+    ex, *_ = np.linalg.lstsq(a_mat, dst[:, 0], rcond=None)
+    ey, *_ = np.linalg.lstsq(a_mat, dst[:, 1], rcond=None)
+    corners = np.array([[0, 0], [1500, 0], [0, 1500], [1500, 1500]],
+                       np.float64)
+    cx, cy = corners[:, 0], corners[:, 1]
+
+    def corner_err(c):
+        gx, gy = warp.warp_xy(np.asarray(c, np.float64), cx, cy)
+        tx = ex[0] * cx + ex[1] * cy + ex[2] * cx * cy + ex[3]
+        ty = ey[0] * cx + ey[1] * cy + ey[2] * cx * cy + ey[3]
+        return float(np.hypot(np.asarray(gx) - tx,
+                              np.asarray(gy) - ty).max())
+
+    s32, d32 = src.astype(np.float32), dst.astype(np.float32)
+    assert corner_err(solve.solve_warp(s32, d32)) < 0.05
+    full = solve._mm
+    monkeypatch.setattr(solve, "_mm", lambda p, q: full(tf32(p), tf32(q)))
+    assert corner_err(solve.solve_warp(s32, d32)) > 0.05

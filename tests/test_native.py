@@ -25,14 +25,17 @@ def test_native_matches_python_codec(tmp_path, rng):
     np.testing.assert_array_equal(codec.read_bmp(p), bmp.read_bmp(p))
 
 
-def test_native_reads_reference_dataset():
-    got = codec.read_bmp("/root/reference/Input/1.bmp")
-    expect = bmp.read_bmp("/root/reference/Input/1.bmp")
+def test_native_reads_reference_dataset(input_paths):
+    """Input/-shaped dataset (seeded, conftest.input_paths): the native
+    and the Python decoders agree."""
+    got = codec.read_bmp(input_paths[0])
+    expect = bmp.read_bmp(input_paths[0])
+    assert got.shape == (512, 384, 3)
     np.testing.assert_array_equal(got, expect)
 
 
-def test_native_batch_loader():
-    paths = [f"/root/reference/Input/{i}.bmp" for i in range(1, 5)]
+def test_native_batch_loader(input_paths):
+    paths = input_paths
     batch = codec.load_batch(paths)
     assert batch.shape == (4, 512, 384, 3)
     for i, p in enumerate(paths):

@@ -18,6 +18,11 @@ def test_bmp_roundtrip(rng):
 
 
 def test_bmp_reads_reference_dataset(input_images):
+    """The Input/-shaped seeded set survives save_image -> load_image."""
+    from computervisionimagestich2_tpu.utils.synth import render_sweep
+
+    for img, frame in zip(input_images, render_sweep(1, 4, 512, 384).frames):
+        np.testing.assert_array_equal(img, frame)
     for img in input_images:
         assert img.shape == (512, 384, 3)
         assert img.dtype == np.uint8
@@ -317,7 +322,7 @@ def test_solve_warp_least_squares_matches_numpy(rng):
 
 
 def test_banded_projection_matches_gather_oracle(rng):
-    """The banded fast path (MXU column select + static row bands) must
+    """The banded fast path (matmul column select + static row bands) must
     match the direct gather form within one u8 step (interpolation
     rounding-order only), both orientations."""
     import jax.numpy as jnp

@@ -1,5 +1,6 @@
 """Multi-device tests on the virtual 8-device CPU mesh (conftest)."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -205,7 +206,8 @@ def test_batched_register_sharded(rng):
 def test_dryrun_multichip_entrypoint():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "__graft_entry__.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()
@@ -220,7 +222,7 @@ def test_batched_stitch_chain_matches_per_panorama(rng):
     vmapped program must equal the same fixed-canvas stitch run per
     panorama (and the content extent must match the Stitcher's canvas)."""
     from computervisionimagestich2_tpu.parallel.batched import (
-        _nopallas, _stitch_one_fixed, batched_stitch_chain)
+        _stitch_one_fixed, batched_stitch_chain)
 
     from tests.test_integration import make_scene
 
@@ -237,12 +239,11 @@ def test_batched_stitch_chain_matches_per_panorama(rng):
     out, plans = batched_stitch_chain(batch, TINY, canvas_hw)
     assert out.shape == (2, 192, 256, 3)
 
-    cfgx = _nopallas(TINY)
     from computervisionimagestich2_tpu.models.stitcher import bfs_edge_seq
     adj = [[abs(i - j) == 1 for j in range(k)] for i in range(k)]
     edge_seq = tuple(bfs_edge_seq(adj, k // 2))
     for i in range(2):
-        single, plan_1 = _stitch_one_fixed(batch[i], cfgx, canvas_hw,
+        single, plan_1 = _stitch_one_fixed(batch[i], TINY, canvas_hw,
                                            edge_seq)
         np.testing.assert_allclose(np.asarray(out[i]), np.asarray(single),
                                    atol=1e-4)
@@ -288,6 +289,55 @@ def test_batched_stitch_chain_sharded_over_mesh(rng):
                                np.asarray(plans_ref)[:, :, 18:22], atol=1.0)
 
 
+def test_batched_stitch_chain_sharded_takes_the_kernel_route():
+    """A data-sharded batch runs the SIFT kernel route like the Stitcher
+    (the kernels vmap over the batch; here through the Pallas
+    interpreter): each panorama matches the XLA route stitched unsharded,
+    and the output stays split across the data axis."""
+    from computervisionimagestich2_tpu.parallel.batched import (
+        batched_stitch_chain)
+
+    from tests.test_integration import make_scene
+
+    h, w, k = 96, 96, 2
+    base = make_scene(np.random.default_rng(7), h, 2 * w).astype(np.float32)
+    step = int(w * 0.45)
+    batch = jnp.asarray(np.stack([
+        np.stack([base[:, off + i * step: off + i * step + w]
+                  for i in range(k)]) for off in (0, 8, 16, 24)
+    ]).astype(np.uint8))
+    kern = dataclasses.replace(
+        TINY, sift=dataclasses.replace(TINY.sift, pallas="interpret"))
+    xla = dataclasses.replace(
+        TINY, sift=dataclasses.replace(TINY.sift, pallas="off"))
+
+    (sharded,) = shard_batch(make_mesh(4, sp=1), batch)
+    out_k, plans_k = batched_stitch_chain(sharded, kern, (128, 192))
+    out_x, plans_x = batched_stitch_chain(batch, xla, (128, 192))
+    assert len({s.device for s in out_k.addressable_shards}) == 4
+    diff = np.abs(np.asarray(out_k) - np.asarray(out_x))
+    assert (diff > 1).mean() < 1e-3, (diff > 1).mean()
+    np.testing.assert_allclose(np.asarray(plans_k)[:, :, 18:22],
+                               np.asarray(plans_x)[:, :, 18:22], atol=1.0)
+
+
+def test_mesh_edge_gate_follows_seam_auto_policy():
+    """An edge whose blend canvas engages the area-gated seam-auto policy
+    (seam-band blend + rgb gain on one device) must not take the sharded
+    full-canvas blend, or the meshed panorama differs from the
+    single-device one everywhere the gain moved the exposure."""
+    from computervisionimagestich2_tpu.models.stitcher import Stitcher
+
+    mesh = make_mesh(8, sp=8)
+    blend = dataclasses.replace(TINY.blend, seam_auto_area=100_000)
+    st = Stitcher(dataclasses.replace(TINY, blend=blend), mesh=mesh)
+    assert st._mesh_edge_ok((256, 384))            # 98 kpx: full blend
+    assert not st._mesh_edge_ok((256, 512))        # 131 kpx: seam-auto
+    off = dataclasses.replace(blend, seam_auto_area=0)
+    st = Stitcher(dataclasses.replace(TINY, blend=off), mesh=mesh)
+    assert st._mesh_edge_ok((256, 512))
+
+
 @pytest.mark.slow
 def test_stitcher_mesh_mode_matches_single_device():
     """Stitcher(mesh=...) — multi-device as a MODE: the full pipeline with
@@ -315,15 +365,11 @@ def test_stitcher_mesh_mode_matches_single_device():
 
 @pytest.mark.slow
 def test_stitcher_mesh_mode_with_pallas_interpret_kernels():
-    """Mesh mode + the PALLAS kernel code path (interpret mode).
-
-    VERDICT r4 weak #4: the multichip dryrun pins the CPU backend, where
-    _pallas_enabled() is False — so the mesh artifact stayed green while
-    the single-chip default TPU path was Pallas-compile-broken. This test
-    forces the Pallas dispatch path (pallas="interpret") through a meshed
-    stitch so the mesh artifact exercises the same kernel wiring the TPU
-    default uses. (Mosaic COMPILABILITY on hardware is the TPU smoke
-    gate's job — scripts/tpu_smoke.py.)
+    """Mesh mode + the SIFT kernel route (ops/sift_triton.py in interpret
+    mode): the meshed stitch with the kernels must match the
+    single-device stitch on the XLA route, so the mesh path exercises the
+    same kernel wiring the GPU default uses. (Compiling the kernels for
+    the card is chip_smoke.py's job.)
     """
     from tests.test_integration import make_scene
     from computervisionimagestich2_tpu.models.stitcher import Stitcher
@@ -333,12 +379,10 @@ def test_stitcher_mesh_mode_with_pallas_interpret_kernels():
     images = [base[:, :w], base[:, int(0.4 * w): int(0.4 * w) + w]]
     cfg = dataclasses.replace(
         TINY, ordering="chain", exact_canvas=False,
-        sift=dataclasses.replace(TINY.sift, pallas="interpret"),
-        match=dataclasses.replace(TINY.match, pallas="interpret"))
+        sift=dataclasses.replace(TINY.sift, pallas="interpret"))
 
     single = Stitcher(dataclasses.replace(cfg, sift=dataclasses.replace(
-        cfg.sift, pallas="off"), match=dataclasses.replace(
-        cfg.match, pallas="off"))).stitch(images)
+        cfg.sift, pallas="off"))).stitch(images)
     meshed = Stitcher(cfg, mesh=make_mesh(8, sp=8)).stitch(images)
     assert meshed.shape == single.shape
     diff = np.abs(meshed.astype(np.int32) - single.astype(np.int32))

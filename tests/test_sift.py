@@ -127,10 +127,10 @@ def test_final_cap_keeps_strongest_by_response():
 
     from computervisionimagestich2_tpu.config import SiftConfig
     from computervisionimagestich2_tpu.models.sift import sift_extract_stats
-    from computervisionimagestich2_tpu.utils.io import load_image
     from computervisionimagestich2_tpu.ops.color import to_gray
+    from computervisionimagestich2_tpu.utils.synth import render_sweep
 
-    img = load_image("/root/reference/Input/1.bmp")
+    img = render_sweep(1, 1, 512, 384).frames[0]
     gray = to_gray(jnp.asarray(img, jnp.float32))
     cfg_all = SiftConfig(pallas="off", max_keypoints=4096)
     f_all, st_all = sift_extract_stats(gray, cfg_all)

@@ -159,16 +159,13 @@ def test_streaming_drift_with_rotation_scale_exposure(rng):
     assert drift_kf <= drift_prev + 0.5, (drift_kf, drift_prev)
 
 
-@pytest.mark.slow
-def test_streaming_real_photos_reanchoring_bounds_drift():
-    """VERDICT r3 ask #7 (real-photo stream): drive the streaming stitcher
-    with dataset2 photographs (half-resolution for the CPU lane) and check
-    that the canvas-coordinate feature state stays CONSISTENT with a fresh
+def _assert_reanchored_state_consistent(frames):
+    """Drive the streaming stitcher with ``frames`` and check that the
+    canvas-coordinate feature state stays CONSISTENT with a fresh
     registration: re-registering the last frame's fresh features against
     the stream's own anchor must agree with the stored placement to
     sub-pixel at the frame center — the invariant keyframe re-anchoring is
     supposed to maintain (drift accumulates only across switches)."""
-    import jax
     import jax.numpy as jnp
 
     from computervisionimagestich2_tpu.models.registration import (
@@ -176,12 +173,6 @@ def test_streaming_real_photos_reanchoring_bounds_drift():
     from computervisionimagestich2_tpu.models.sift import sift_extract
     from computervisionimagestich2_tpu.ops.color import to_gray
     from computervisionimagestich2_tpu.ops.warp import warp_points
-    from computervisionimagestich2_tpu.utils.io import load_image
-
-    frames = []
-    for i in range(1, 7):
-        im = load_image(f"/root/reference/src/ex6/dataset2/{i}.bmp")
-        frames.append(np.ascontiguousarray(im[::2, ::2]))  # 400x300
 
     cfg = dataclasses.replace(SMALL, canvas_bucket=64)
     ss = StreamingStitcher(cfg, project=False)
@@ -203,10 +194,11 @@ def test_streaming_real_photos_reanchoring_bounds_drift():
     assert int(np.asarray(n_matches)) >= cfg.match.pair_threshold
     # per-feature residual between the fresh model's placement and the
     # stream's stored coordinates. (A scalar median-displacement summary
-    # would NOT work here: real photos warp non-rigidly across the frame
-    # — measured displacement MAD is 40-65 px — so the invariant is the
-    # per-feature agreement of the two placements, which re-anchoring
-    # keeps sub-pixel: measured median (0.0, -0.8) px, MAD ~3e-5.)
+    # would NOT work on real photos: they warp non-rigidly across the
+    # frame — measured displacement MAD on dataset2 is 40-65 px — so the
+    # invariant is the per-feature agreement of the two placements, which
+    # re-anchoring keeps sub-pixel: measured median (0.0, -0.8) px, MAD
+    # ~3e-5.)
     valid = np.asarray(f_new.valid) & np.asarray(stored.valid)
     fx = np.asarray(f_new.xy)[valid]
     xw, yw = warp_points(np.asarray(fwd), fx[:, 0], fx[:, 1])
@@ -217,10 +209,32 @@ def test_streaming_real_photos_reanchoring_bounds_drift():
     assert np.abs(med).max() < 1.5, med     # placement agreement
     # two INDEPENDENT RANSAC draws (the stream's model vs this fresh
     # re-registration) may settle near-tied consensus basins ~1 px apart
-    # (round-4 basin analysis; the round-5 sampler measured per-feature
-    # MAD 1.13 px here) — the gate bounds divergence, not draw-identity
+    # (measured per-feature MAD 1.13 px on dataset2) — the gate bounds
+    # divergence, not draw-identity
     assert mad.max() < 2.0, mad             # no rotation/scale divergence
     assert ss.n_keyframe_switches >= 1      # re-anchoring actually ran
+
+
+@pytest.mark.slow
+def test_streaming_real_photos_reanchoring_bounds_drift(reference_dir):
+    """The re-anchoring invariant on dataset2's photographs
+    (half-resolution for the CPU lane, 400x300)."""
+    from computervisionimagestich2_tpu.utils.io import load_image
+
+    _assert_reanchored_state_consistent([
+        np.ascontiguousarray(load_image(
+            f"{reference_dir}/src/ex6/dataset2/{i}.bmp")[::2, ::2])
+        for i in range(1, 7)])
+
+
+@pytest.mark.slow
+def test_streaming_seeded_sweep_reanchoring_bounds_drift():
+    """The re-anchoring invariant on a seeded 6-frame sweep at dataset2's
+    half resolution (400x300): pure translations, so it checks the state
+    bookkeeping, not robustness to non-rigid photo motion."""
+    from computervisionimagestich2_tpu.utils.synth import render_sweep
+
+    _assert_reanchored_state_consistent(render_sweep(2, 6, 400, 300).frames)
 
 
 @pytest.mark.slow  # 48s; rolling-window path

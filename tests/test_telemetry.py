@@ -1,6 +1,6 @@
 """Static-capacity overflow must be reported, never silent (VERDICT r1 #8).
 
-The TPU-native design replaces VLFeat's realloc'd keypoint buffers
+The design replaces VLFeat's realloc'd keypoint buffers
 (vl/sift.c:580-590) and the app's unbounded vector<ImgPair> with
 fixed-capacity arrays; these tests pin that truncation is counted.
 """
